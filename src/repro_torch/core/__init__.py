@@ -1,0 +1,15 @@
+"""Types, rollout buffer, `System` and the Anakin runner (port of `repro.core`)."""
+from repro_torch.core.system import System, init_system_state, make_anakin, train_anakin
+from repro_torch.core.types import Carry, EvalMetrics, SystemState, TrainState, Transition
+
+__all__ = [
+    "Carry",
+    "EvalMetrics",
+    "System",
+    "SystemState",
+    "TrainState",
+    "Transition",
+    "init_system_state",
+    "make_anakin",
+    "train_anakin",
+]

@@ -1,0 +1,148 @@
+"""Stream wrappers over batched envs (port of `repro.envs.wrappers`).
+
+* `AutoReset` — fused auto-reset: an env that terminates is reset in the
+  same `step`, and the returned timestep is the FIRST of the new episode
+  carrying the terminal reward and discount (the merged boundary);
+* `EpisodeStats` — per-agent episode returns and lengths kept in the
+  state, published at every episode boundary.
+
+Every tensor carries the leading env axis; masks of shape ``(N,)`` are
+broadcast over each leaf's trailing dims.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple
+
+import torch
+
+from repro_torch.envs.api import TimeStep
+from repro_torch.tree import tree_map
+
+
+def _where(mask, new, old):
+    """Leafwise select along the leading env axis."""
+
+    def sel(n, o):
+        return torch.where(mask.reshape(mask.shape + (1,) * (o.dim() - 1)), n, o)
+
+    return tree_map(sel, new, old)
+
+
+@dataclasses.dataclass(frozen=True)
+class Wrapper:
+    """Base wrapper: delegate the env protocol (and any attribute) inward."""
+
+    env: Any
+
+    def __getattr__(self, name):
+        # only reached for attributes not defined on the wrapper itself
+        return getattr(self.env, name)
+
+    def spec(self):
+        """Delegate to the inner env."""
+        return self.env.spec()
+
+    def reset(self, num_envs, device, generator=None):
+        """Delegate to the inner env."""
+        return self.env.reset(num_envs, device, generator)
+
+    def step(self, state, actions):
+        """Delegate to the inner env."""
+        return self.env.step(state, actions)
+
+    def global_state(self, state):
+        """Delegate to the inner env."""
+        return self.env.global_state(state)
+
+
+class AutoResetState(NamedTuple):
+    """AutoReset state: the generator for auto-resets + the inner state."""
+
+    key: Any     # torch.Generator consumed by auto-resets (or None)
+    inner: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoReset(Wrapper):
+    """Fused auto-reset: terminated envs restart inside the same `step`."""
+
+    def reset(self, num_envs, device, generator=None):
+        """Reset the inner env and keep ``generator`` for auto-resets."""
+        inner, ts = self.env.reset(num_envs, device, generator)
+        return AutoResetState(key=generator, inner=inner), ts
+
+    def step(self, state, actions):
+        """Step; where an env emits LAST, restart it and emit the merged FIRST."""
+        inner, ts = self.env.step(state.inner, actions)
+        n = ts.step_type.shape[0]
+        reset_inner, reset_ts = self.env.reset(n, ts.step_type.device, state.key)
+        done = ts.last()
+        merged = TimeStep(
+            step_type=torch.where(done, reset_ts.step_type, ts.step_type),
+            reward=ts.reward,
+            discount=ts.discount,
+            observation=_where(done, reset_ts.observation, ts.observation),
+        )
+        return state._replace(inner=_where(done, reset_inner, inner)), merged
+
+    def global_state(self, state):
+        """Delegate to the inner env (unwrapping the AutoReset state)."""
+        return self.env.global_state(state.inner)
+
+
+class EpisodeStatsState(NamedTuple):
+    """EpisodeStats state: running and last-completed episode statistics."""
+
+    inner: Any
+    returns: Dict[str, Any]       # running per-agent return, (N,)
+    length: Any                   # (N,) int32, steps this episode
+    last_returns: Dict[str, Any]  # per-agent return of the last completed episode
+    last_length: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class EpisodeStats(Wrapper):
+    """Accumulate per-agent episode returns/lengths inside the env state.
+
+    An episode completes on a raw LAST or on the merged FIRST that an
+    `AutoReset` layer emits at a boundary (whose reward is the terminal one).
+    """
+
+    def reset(self, num_envs, device, generator=None):
+        """Reset the inner env with zeroed episode statistics."""
+        inner, ts = self.env.reset(num_envs, device, generator)
+        z = {a: torch.zeros(num_envs, device=device) for a in self.env.agent_ids}
+        zero_i = torch.zeros(num_envs, dtype=torch.int32, device=device)
+        return EpisodeStatsState(inner, z, zero_i, dict(z), zero_i), ts
+
+    def step(self, state, actions):
+        """Step; accumulate returns/lengths, publish them at boundaries."""
+        inner, ts = self.env.step(state.inner, actions)
+        completed = ts.last() | ts.first()
+        ret = {a: state.returns[a] + ts.reward[a] for a in state.returns}
+        length = state.length + 1
+        zero = torch.zeros((), device=completed.device)
+        new_state = EpisodeStatsState(
+            inner=inner,
+            returns={a: torch.where(completed, zero, ret[a]) for a in ret},
+            length=torch.where(completed, zero.to(torch.int32), length),
+            last_returns={
+                a: torch.where(completed, ret[a], state.last_returns[a]) for a in ret
+            },
+            last_length=torch.where(completed, length, state.last_length),
+        )
+        return new_state, ts
+
+    def global_state(self, state):
+        """Delegate to the inner env (unwrapping the stats state)."""
+        return self.env.global_state(state.inner)
+
+
+def replace_reset_keys(state, generator):
+    """Swap the `AutoReset` generator wherever it sits in a wrapper-state stack."""
+    if isinstance(state, AutoResetState):
+        return state._replace(key=generator)
+    if hasattr(state, "inner") and hasattr(state, "_replace"):
+        return state._replace(inner=replace_reset_keys(state.inner, generator))
+    raise TypeError("state stack contains no AutoReset layer")
