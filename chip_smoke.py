@@ -35,6 +35,7 @@ import time
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOPS_PER_S = 67e12  # the same sheet: float32 outside the tensor cores
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
 SLICE_TOL = 1e-4  # full update on the card vs the CPU: 16 Adam steps, other sum orders
@@ -130,7 +131,7 @@ def _time_ms(fn, reps=25, inner=10):
 
 
 def kernel_timing(ops, ref):
-    """Kernel, plain-version and byte-bound times at the path's shapes."""
+    """Kernel, plain-version and bound times at the path's shapes."""
     rows = []
     for T, B, H in PATH_SHAPES:
         a, b, h0, reset = _inputs(T, B, H, "random", seed=0)
@@ -139,16 +140,22 @@ def kernel_timing(ops, ref):
         # each input read once, the output written once: a, b, out (T, D)
         # float32, h0 (D,) float32, the reset mask (T, B) bytes
         nbytes = 3 * T * D * 4 + D * 4 + T * B
+        flops = 2 * T * D  # one multiply-add per element and step
         for direction in ("forward", "reverse"):
             rev = direction == "reverse"
             h = None if rev else flat[3]
             ms = _time_ms(lambda: ops._launch(*flat[:3], h, rev))
             plain_ms = _time_ms(lambda: ref.scan_ref(*flat[:3], h, reverse=rev), reps=20, inner=1)
             bytes_moved = nbytes - (D * 4 if rev else 0)
+            bounds = {
+                "bytes": bytes_moved / HBM_BYTES_PER_S * 1e3,
+                "operations": flops / F32_FLOPS_PER_S * 1e3,
+            }
+            bound_by = max(bounds, key=bounds.get)
             rows.append({
                 "T": T, "B": B, "H": H, "direction": direction, "ms": ms,
-                "plain_ms": plain_ms, "bytes": bytes_moved,
-                "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": plain_ms, "bytes": bytes_moved, "flops": flops,
+                "bound_ms": bounds[bound_by], "bound_by": bound_by,
             })
     return rows
 
@@ -261,7 +268,8 @@ def main():
         print(
             f"kernel timing: recurrent_scan {r['direction']} T={r['T']} B={r['B']} H={r['H']}: "
             f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.1f} us, "
-            f"byte bound {r['bound_ms'] * 1e3:.2f} us ({r['bytes']} B) {tag}"
+            f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} ({r['bytes']} B, "
+            f"{r['flops']} flop) {tag}"
         )
 
     system, state, run = train_and_evaluate(ops)
@@ -289,7 +297,7 @@ def main():
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": main_row["bound_by"],
         "library_ms": None,
         "shape": "T=128 B=64 H=64 forward (the minibatch unroll)",
         "by_shape": rows,

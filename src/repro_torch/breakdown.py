@@ -9,21 +9,28 @@ iterations) and its update with the host clock around synchronised work.
 A third rollout and update run under `torch.profiler`, which gives the
 device's busy time per phase (the sum of its kernels' times), its idle
 share, the kernel launches per phase and the kernels that take the most
-device time.  Prints one JSON object.
+device time.  For the recurrent-scan kernel it sets the profiler's count
+beside the wrapper's own launch counter and beside the trace's kernel
+events grouped by grid size (one grid per unroll width).  Prints one JSON
+object.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
-from repro_torch.core.system import _do_updates, _step_phase, _training_env, init_system_state
+from repro_torch.core.system import _step_phase, _training_env, init_system_state
 from repro_torch.envs import MatrixGame
+from repro_torch.kernels.recurrent_scan import linear_recurrent_scan
 from repro_torch.systems import PPOConfig, make_rec_ippo
 
 
@@ -35,7 +42,7 @@ def _rollout(system, tenv, st, steps):
 
 
 def _update(system, st):
-    train, buffer, _ = _do_updates(system, st.train, st.buffer, st.key)
+    train, buffer, _ = system.update(st.train, st.buffer, st.key)
     return st._replace(train=train, buffer=buffer)
 
 
@@ -47,12 +54,44 @@ def _timed(fn, *args):
     return out, time.perf_counter() - t0
 
 
+def _trace_kernels(prof):
+    """Kernel events in the exported trace: all, and the recurrent scan's by grid."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    grids = collections.Counter(
+        str(e.get("args", {}).get("grid")) for e in kernels
+        if "linear_scan_kernel" in e.get("name", "")
+    )
+    return len(kernels), dict(grids)
+
+
+def _profiled(fn, *args):
+    """``fn(*args)`` under the profiler; its output and device summary."""
+    before = linear_recurrent_scan.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out, wall = _timed(fn, *args)
+    summary = _device_summary(prof, wall)
+    summary["trace_kernel_events"], by_grid = _trace_kernels(prof)
+    summary["recurrent_scan_launches"].update(
+        counter=linear_recurrent_scan.launches - before, trace_by_grid=by_grid
+    )
+    return out, summary
+
+
 def _device_summary(prof, wall_s):
     """Busy time, launches and top kernels of the device events in ``prof``."""
     kernels = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
+    scan = [e for e in kernels if "linear_scan_kernel" in e.key]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {
@@ -60,9 +99,8 @@ def _device_summary(prof, wall_s):
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1 - busy_us / 1e6 / wall_s if busy_us else None,
         "kernel_launches": sum(e.count for e in kernels),
-        "recurrent_scan_device_ms": sum(
-            e.self_device_time_total for e in kernels if "linear_scan_kernel" in e.key
-        ) / 1e3,
+        "recurrent_scan_device_ms": sum(e.self_device_time_total for e in scan) / 1e3,
+        "recurrent_scan_launches": {"profiler": sum(e.count for e in scan)},
         "top_kernels": [
             {"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3}
             for e in top
@@ -88,12 +126,8 @@ def main(argv=None):
     st, act_s = _timed(_rollout, system, tenv, st, steps)
     st, update_s = _timed(_update, system, st)
     phases = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        st, wall = _timed(_rollout, system, tenv, st, steps)
-    phases["act"] = _device_summary(prof, wall)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        st, wall = _timed(_update, system, st)
-    phases["update"] = _device_summary(prof, wall)
+    st, phases["act"] = _profiled(_rollout, system, tenv, st, steps)
+    st, phases["update"] = _profiled(_update, system, st)
     gpu = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,

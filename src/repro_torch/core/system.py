@@ -46,7 +46,6 @@ class System:
     init_buffer: Callable
     observe: Callable
     can_sample: Callable
-    updates_per_step: int = 1
     name: str = "system"
 
 
@@ -111,13 +110,6 @@ def _step_phase(system: System, tenv, st: SystemState):
     return SystemState(st.train, buffer, env_state, ts, carry, st.key), metrics
 
 
-def _do_updates(system: System, train, buffer, generator):
-    """``updates_per_step`` trainer updates; returns the last update's metrics."""
-    for _ in range(system.updates_per_step):
-        train, buffer, upd = system.update(train, buffer, generator)
-    return train, buffer, upd
-
-
 def _one_iteration(system: System, tenv, st: SystemState):
     """One vectorised step of every env, then the update if the dataset is ready.
 
@@ -127,7 +119,7 @@ def _one_iteration(system: System, tenv, st: SystemState):
         st, metrics = _step_phase(system, tenv, st)
     if not system.can_sample(st.buffer):
         return st, metrics, None
-    train, buffer, upd = _do_updates(system, st.train, st.buffer, st.key)
+    train, buffer, upd = system.update(st.train, st.buffer, st.key)
     return st._replace(train=train, buffer=buffer), metrics, upd
 
 

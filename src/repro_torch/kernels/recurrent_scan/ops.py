@@ -43,13 +43,15 @@ def _launch(a, b, reset, h0, reverse: bool):
     T, D = a.shape
     H = D // reset.shape[1] if reset is not None else 1
     out = torch.empty_like(b)
-    err = _kernel()(
-        a.data_ptr(), b.data_ptr(),
-        reset.data_ptr() if reset is not None else None,
-        h0.data_ptr() if h0 is not None else None,
-        out.data_ptr(), T, D, H, int(reverse),
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
+    # the C entry point launches on the thread's current device: make it a's
+    with torch.cuda.device(a.device):
+        err = _kernel()(
+            a.data_ptr(), b.data_ptr(),
+            reset.data_ptr() if reset is not None else None,
+            h0.data_ptr() if h0 is not None else None,
+            out.data_ptr(), T, D, H, int(reverse),
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"recurrent_scan kernel launch failed: CUDA error {err}")
     linear_recurrent_scan.launches += 1

@@ -8,7 +8,8 @@ over the stored window from that carry (BPTT with FIRST-row resets),
 minibatching over the env axis.  With ``recurrent_core="linear"`` every
 BPTT unroll is one call of the recurrent-scan kernel.
 
-V-trace (``use_vtrace``) and the feed-forward variants are not ported yet.
+V-trace (``use_vtrace``), the centralised critic of rec-MAPPO and the
+feed-forward variants are not ported yet.
 """
 from __future__ import annotations
 
@@ -50,10 +51,7 @@ class PPOConfig:
     rollout_len: int = 128
     shared_weights: bool = True
     recurrent_core: str = "gru"
-    distributed_axis: str | None = None
-    use_vtrace: bool = False
-    vtrace_clip_rho: float = 1.0
-    vtrace_clip_c: float = 1.0
+    use_vtrace: bool = False  # not ported: True raises
 
 
 def _make_gae(cfg: PPOConfig, ids):
@@ -124,8 +122,10 @@ def _value_and_grad(fn, params, *args):
     return loss.detach(), tree_map(lambda x: grads[id(x)], p)
 
 
-def make_recurrent_ppo_networks(env, cfg: PPOConfig, centralised: bool):
+def make_recurrent_ppo_networks(env, cfg: PPOConfig):
     """Per-agent recurrent actor/critic stacks (encoder -> core -> head).
+
+    Both stacks read the agent's own observation (rec-IPPO's critic).
 
     Returns ``(ids, num_actions, init, actor, critic)``; ``actor`` and
     ``critic`` expose ``step`` (one env step) and ``unroll`` (BPTT over a
@@ -135,12 +135,10 @@ def make_recurrent_ppo_networks(env, cfg: PPOConfig, centralised: bool):
     ids = list(spec.agent_ids)
     num_actions = {a: spec.actions[a].num_values for a in ids}
     obs_dims = {a: spec.observations[a].shape[0] for a in ids}
-    state_dim = spec.state.shape[0]
     hidden = cfg.hidden_sizes[-1]
 
     homogeneous = len(set((obs_dims[a], num_actions[a]) for a in ids)) == 1
     share = cfg.shared_weights and homogeneous
-    critic_in = {a: (state_dim if centralised else obs_dims[a]) for a in ids}
 
     def stack(in_dim, out_dim):
         return {
@@ -150,7 +148,7 @@ def make_recurrent_ppo_networks(env, cfg: PPOConfig, centralised: bool):
         }
 
     actors = {a: stack(obs_dims[a], num_actions[a]) for a in ids}
-    critics = {a: stack(critic_in[a], 1) for a in ids}
+    critics = {a: stack(obs_dims[a], 1) for a in ids}
 
     def init_stack(net, generator):
         return {k: net[k].init(generator) for k in ("encoder", "core", "head")}
@@ -194,24 +192,17 @@ def make_recurrent_ppo_networks(env, cfg: PPOConfig, centralised: bool):
     return ids, num_actions, init, _Net(actors, "actor"), _Net(critics, "critic")
 
 
-def make_recurrent_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str) -> System:
-    """Build a recurrent PPO `System` (rec-IPPO or rec-MAPPO by critic input)."""
+def make_recurrent_ppo_system(env, cfg: PPOConfig, name: str) -> System:
+    """Build a recurrent PPO `System` with per-agent-observation critics."""
     if cfg.use_vtrace:
         raise NotImplementedError("V-trace is not ported yet")
-    if cfg.distributed_axis:
-        raise NotImplementedError("the distributed runner is not ported yet")
     spec: EnvSpec = env.spec()
-    ids, num_actions, init_params, actor, critic = make_recurrent_ppo_networks(
-        env, cfg, centralised
-    )
+    ids, num_actions, init_params, actor, critic = make_recurrent_ppo_networks(env, cfg)
     hidden = cfg.hidden_sizes[-1]
     opt = optim.chain(
         optim.clip_by_global_norm(cfg.max_grad_norm),
         optim.adamw(cfg.learning_rate),
     )
-
-    def critic_obs(obs, state, agent):
-        return state if centralised else obs[agent]
 
     def init_train(generator):
         """Initialise the `TrainState` on ``generator``'s device."""
@@ -242,7 +233,7 @@ def make_recurrent_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str)
             act = _sample(lg, generator)
             logps[a] = _take(torch.log_softmax(lg, dim=-1), act)
             actions[a] = act.to(torch.int32)
-            h_critic[a], v = critic.step(params, a, h_critic[a], critic_obs(obs, state, a))
+            h_critic[a], v = critic.step(params, a, h_critic[a], obs[a])
             values[a] = v[..., 0]
         new_carry = Carry(hidden={"actor": h_actor, "critic": h_critic})
         return actions, new_carry, {"logp": logps, "value": values, "carry_in": carry}
@@ -261,9 +252,7 @@ def make_recurrent_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str)
             lp_all = torch.log_softmax(lg, dim=-1)
             lp = _take(lp_all, mb["actions"][a])
             hc0 = mb["carry0"].hidden["critic"][a]
-            _, v = critic.unroll(
-                params, a, hc0, critic_obs(mb["obs"], mb["state"], a), resets
-            )
+            _, v = critic.unroll(params, a, hc0, mb["obs"][a], resets)
             total = total + _ppo_surrogate(
                 cfg, lp, lp_all, mb["logp"][a], mb["advantage"][a], v[..., 0],
                 mb["returns"][a],
@@ -280,24 +269,18 @@ def make_recurrent_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str)
 
         # Bootstrap value at T: replay the critic cores over the window from
         # the stored start carry, then one step on the final next-observation.
-        last_obs = {a: x[-1] for a, x in traj.next_obs.items()}
-        last_state = traj.next_state[-1]
         last_values = {}
         with torch.no_grad():
             for a in ids:
                 h_t, _ = critic.unroll(
-                    train.params, a, carry0.hidden["critic"][a],
-                    critic_obs(traj.obs, traj.state, a), resets,
+                    train.params, a, carry0.hidden["critic"][a], traj.obs[a], resets
                 )
-                _, v = critic.step(
-                    train.params, a, h_t, critic_obs(last_obs, last_state, a)
-                )
+                _, v = critic.step(train.params, a, h_t, traj.next_obs[a][-1])
                 last_values[a] = v[..., 0]
             adv, ret = gae(traj, last_values)
 
         data = dict(
             obs=traj.obs,
-            state=traj.state,
             actions=traj.actions,
             logp=traj.extras["logp"],
             advantage=adv,
@@ -366,4 +349,4 @@ def make_recurrent_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str)
 
 def make_rec_ippo(env, cfg: PPOConfig = PPOConfig()) -> System:
     """Recurrent IPPO: memory-core actors/critics on each agent's obs stream."""
-    return make_recurrent_ppo_system(env, cfg, centralised=False, name="rec_ippo")
+    return make_recurrent_ppo_system(env, cfg, name="rec_ippo")

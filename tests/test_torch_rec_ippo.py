@@ -10,6 +10,7 @@
 * a short CPU ``train_anakin`` of the port, and the import rule: importing
   ``repro_torch`` loads neither ``jax`` nor ``repro`` and initialises no GPU.
 """
+import dataclasses
 import functools
 import subprocess
 import sys
@@ -37,6 +38,7 @@ UPDATE_TOL = 1e-5
 SMALL = dict(hidden_sizes=(16, 16), rollout_len=8, epochs=2, recurrent_core="linear")
 NUM_ENVS = 4
 HORIZON = 5  # shorter than the rollout, so stored windows cross a reset
+AGENTS = ("agent_0", "agent_1")
 
 
 def _close(got, want, tol):
@@ -53,43 +55,56 @@ def _pair(**overrides):
     return jsys, tsys
 
 
-def test_act_step_matches():
-    cfg = dict(SMALL)
+@pytest.mark.parametrize("shared_weights", [True, False])
+def test_act_step_matches(shared_weights):
+    cfg = dict(SMALL, shared_weights=shared_weights)
     _, _, _, jactor, jcritic = jon.make_recurrent_ppo_networks(
         JaxMatrixGame(), jon.PPOConfig(**cfg), centralised=False
     )
     _, _, _, tactor, tcritic = ton.make_recurrent_ppo_networks(
-        MatrixGame(), ton.PPOConfig(**cfg), centralised=False
+        MatrixGame(), ton.PPOConfig(**cfg)
     )
+    jsys, tsys = _pair(shared_weights=shared_weights)
     train = _stored_rollout()[0].train
+    if not shared_weights:
+        # one stack per agent, made unequal so a swap of agents would show
+        train = train._replace(params={
+            group: {a: jax.tree_util.tree_map(lambda x: x * (1.0 - 0.5 * i), p["shared"])
+                    for i, a in enumerate(AGENTS)}
+            for group, p in train.params.items()
+        })
     params = train.params
+    assert set(params["actor"]) == ({"shared"} if shared_weights else set(AGENTS))
     pt = params_from_jax(params)
     rng = np.random.default_rng(0)
     obs = rng.normal(size=(NUM_ENVS, 6)).astype(np.float32)
     h = rng.normal(size=(NUM_ENVS, 16)).astype(np.float32)
     reset = np.array([True, False, True, False])
 
-    def j_steps(params, h, obs, reset):
-        return [net.step(params, "agent_0", h, obs, reset) for net in (jactor, jcritic)]
+    carry = jsys.initial_carry((NUM_ENVS,))
+    carry = carry._replace(hidden=jax.tree_util.tree_map(
+        lambda x: jnp.asarray(rng.normal(size=x.shape), jnp.float32), carry.hidden))
+    obs_d = {a: obs for a in AGENTS}
+    gs = np.zeros((NUM_ENVS, 6), np.float32)
 
-    for (hj, yj), tnet in zip(jax.jit(j_steps)(params, h, obs, reset), (tactor, tcritic)):
-        ht, yt = tnet.step(pt, "agent_0", torch.from_numpy(h), torch.from_numpy(obs),
+    def j_act(train, h, obs, reset, carry, key):
+        """Net steps with a reset mask, then greedy and sampling act steps."""
+        steps = [net.step(train.params, a, h, obs, reset)
+                 for a in AGENTS for net in (jactor, jcritic)]
+        obs_d = {a: obs for a in AGENTS}
+        return (steps,
+                jsys.select_actions(train, obs_d, gs, carry, key, training=False),
+                jsys.select_actions(train, obs_d, gs, carry, key))
+
+    j_steps, (ja, jc, _), (_, jc_train, jx) = jax.jit(j_act)(
+        train, h, obs, reset, carry, jax.random.key(2))
+    tnets = [(a, net) for a in AGENTS for net in (tactor, tcritic)]
+    for (hj, yj), (a, tnet) in zip(j_steps, tnets):
+        ht, yt = tnet.step(pt, a, torch.from_numpy(h), torch.from_numpy(obs),
                            torch.from_numpy(reset))
         _close(ht, hj, ACT_TOL)  # carries
         _close(yt, yj, ACT_TOL)  # logits / values
 
-    jsys, tsys = _pair()
-    carry = jsys.initial_carry((NUM_ENVS,))
-    carry = carry._replace(hidden=jax.tree_util.tree_map(
-        lambda x: jnp.asarray(rng.normal(size=x.shape), jnp.float32), carry.hidden))
-    obs_d = {a: obs for a in ("agent_0", "agent_1")}
-    gs = np.zeros((NUM_ENVS, 6), np.float32)
-
-    def j_select(train, obs_d, gs, carry, key):
-        return (jsys.select_actions(train, obs_d, gs, carry, key, training=False),
-                jsys.select_actions(train, obs_d, gs, carry, key))
-
-    (ja, jc, _), (_, jc_train, jx) = jax.jit(j_select)(train, obs_d, gs, carry, jax.random.key(2))
     args = (params_from_jax(train), params_from_jax(obs_d), torch.from_numpy(gs),
             params_from_jax(carry), torch.Generator().manual_seed(0))
     ta, tc, _ = tsys.select_actions(*args, training=False)
@@ -104,21 +119,43 @@ def test_act_step_matches():
         assert ta[a].dtype == torch.int32
 
 
+def _jax_train_from_port(jsys, tsys):
+    """The port's freshly initialised `TrainState`, in the reference's types."""
+    want = jax.eval_shape(jsys.init_train, jax.random.key(0))
+    tstate = params_to_jax(tsys.init_train(torch.Generator().manual_seed(3)))
+    leaves = jax.tree_util.tree_leaves(tstate)
+    for got, w in zip(leaves, jax.tree_util.tree_leaves(want), strict=True):
+        assert got.shape == w.shape and got.dtype == w.dtype
+    return jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(want), leaves)
+
+
 @functools.cache
 def _stored_rollout():
     """A full rollout buffer from a JAX Anakin run, and the update key.
 
-    The act path does not depend on ``num_minibatches``, so every case of
+    The run starts from the port's initial weights, converted across.  The
+    act path does not depend on ``num_minibatches``, so every case of
     `test_update_matches` shares this one.
     """
-    jsys, _ = _pair()
+    jsys, tsys = _pair()
+    train = _jax_train_from_port(jsys, tsys)
+    jsys = dataclasses.replace(jsys, init_train=lambda key: train)
     tenv = _training_env(jsys.env)
     st = jax.jit(lambda k: init_system_state(jsys, k, NUM_ENVS, train_env=tenv))(
         jax.random.key(3)
     )
-    step = jax.jit(lambda st, k: _step_phase(jsys, tenv, st, k))
+
+    def step(st, key):
+        st, k_upd, _ = _step_phase(jsys, tenv, st, key)
+        # the env step returns some leaves weakly typed; a strong state keeps
+        # one input type, so the step compiles once
+        strong = lambda x: (x if jax.dtypes.issubdtype(x.dtype, jax.dtypes.prng_key)
+                            else jnp.asarray(x, x.dtype))
+        return jax.tree_util.tree_map(strong, st), k_upd
+
+    step = jax.jit(step)
     for _ in range(SMALL["rollout_len"]):
-        st, k_upd, _ = step(st, st.key)
+        st, k_upd = step(st, st.key)
     assert int(st.buffer.t) == SMALL["rollout_len"]
     return st, k_upd
 
