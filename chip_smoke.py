@@ -5,9 +5,13 @@
 Run from the root of a checkout.  It uses the port (``src/repro_torch``)
 only, never JAX, and exits non-zero on the first phase that fails:
 
-1. build: compile the recurrent-scan CUDA kernel from the checkout's
-   sources into ``build/kernels/``;
-2. kernel parity: the kernel against its plain PyTorch versions on the
+1. build: compile both CUDA kernels (``recurrent_scan.cu``,
+   ``selective_scan.cu``) from the checkout's sources into
+   ``build/kernels/``, one nvcc each, in parallel.
+
+rec-IPPO (linear core), the first slice:
+
+2. kernel parity: recurrent_scan against its plain PyTorch versions on the
    card, forward at 1e-5 and the gradients da/db/dh0 at 1e-4, at the
    training path's shapes (T=128, H=64, B=64 and 256) and a ragged one,
    under four reset patterns;
@@ -19,29 +23,59 @@ only, never JAX, and exits non-zero on the first phase that fails:
 5. slice parity: one more PPO update from the trained state on the card
    and on the CPU (the plain path), with the same minibatch shuffle.
 
+Falcon-Mamba-7B greedy serving, the second slice:
+
+6. kernel parity: selective_scan against its plain version at the
+   prefill shape (4, 2048, 8192, 16), the engine's admission shape
+   (1, 64, 8192, 16) and a ragged one (3, 37, 200, 16); float32 inputs at
+   1e-4, and bfloat16 x/B/C (what prefill passes) with the float32 state
+   at 1e-4 and y at 2e-2;
+7. kernel timing at the two path shapes;
+8. launcher: the published config (64 layers, bf16, random weights from a
+   seed) serves a batch of 4 prompts of 2048 tokens for 32 tokens; the
+   prefill must launch the scan exactly once a layer;
+9. engine: the same model behind the continuous-batching engine, 4 slots,
+   8 requests of 16-64 prompt tokens, 16 new tokens each;
+10. slice parity: full width cut to 2 layers in float32, the same weights
+    on the card and on the CPU: prefill logits and caches at 1e-4, then 4
+    decode steps on equal tokens; the engine on the card equals
+    sequential generation.
+
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS_PER_S = 67e12  # the same sheet: float32 outside the tensor cores
+# exponentials: 16 SFU results per clock per SM, 132 SMs, 1.98 GHz boost
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
 SLICE_TOL = 1e-4  # full update on the card vs the CPU: 16 Adam steps, other sum orders
 PATH_SHAPES = [(128, 64, 64), (128, 256, 64)]  # (T, B, H): minibatch and bootstrap unrolls
 RAGGED = (33, 5, 7)  # D = 35: not a multiple of 32 (a warp) or of the block
 PATTERNS = ["none", "all", "mid_window", "random"]
+
+ARCH = "falcon-mamba-7b"
+SCAN_TOL = 1e-4  # docs/KERNELS.md's selective-scan pin: float32 y, and the float32 state
+SCAN_BF16_Y_TOL = 2e-2  # y rounded to bf16: one bf16 step is 2**-8 relative
+SCAN_PATH_SHAPES = [(4, 2048, 8192, 16), (1, 64, 8192, 16)]  # (b, S, di, N): prefill, admission
+SCAN_RAGGED = (3, 37, 200, 16)  # S not a chunk multiple, di not a block multiple
+LM_TOL = 1e-4  # 2 layers at full width in float32: other sum orders on the card
 
 
 def _require(cond, msg):
@@ -236,6 +270,191 @@ def slice_parity(system, state):
     return worst, abs(gpu_loss - cpu_loss)
 
 
+def _scan_inputs(b, S, di, N, dtype, seed):
+    """Selective-scan operands on the card, drawn like prefill's (delta > 0, A < 0)."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    t = {
+        "x": torch.randn(b, S, di, generator=g, device=dev),
+        "delta": torch.randn(b, S, di, generator=g, device=dev).abs() * 0.1,
+        "A": -(torch.randn(di, N, generator=g, device=dev).abs() + 0.5),
+        "B": torch.randn(b, S, N, generator=g, device=dev),
+        "C": torch.randn(b, S, N, generator=g, device=dev),
+        "D": torch.randn(di, generator=g, device=dev),
+    }
+    for k in ("x", "B", "C"):
+        t[k] = t[k].to(dtype)
+    return t
+
+
+def scan_parity(sops, sref):
+    """selective_scan against its plain version, float32 and bf16 inputs."""
+    worst = {}
+    for b, S, di, N in SCAN_PATH_SHAPES + [SCAN_RAGGED]:
+        for dtype in (torch.float32, torch.bfloat16):
+            t = _scan_inputs(b, S, di, N, dtype, seed=b + S)
+            y, h = sops.selective_scan(**t)
+            y_ref, h_ref = sref.selective_scan_ref(**t)
+            torch.cuda.synchronize()
+            case = f"b={b} S={S} di={di} N={N} {str(dtype)[6:]}"
+            y_tol = SCAN_TOL if dtype == torch.float32 else SCAN_BF16_Y_TOL
+            _require(y.dtype == dtype and h.dtype == torch.float32, f"dtypes: {case}")
+            _require(_within(y.float(), y_ref.float(), y_tol), f"y differs: {case}")
+            _require(_within(h, h_ref, SCAN_TOL), f"h_final differs: {case}")
+            worst[case] = {"y": _err(y.float(), y_ref.float()), "h_final": _err(h, h_ref)}
+    return worst
+
+
+def scan_timing(sops, sref):
+    """Kernel, plain-version and bound times at the path's shapes, bf16 x/B/C."""
+    rows = []
+    for b, S, di, N in SCAN_PATH_SHAPES:
+        t = _scan_inputs(b, S, di, N, torch.bfloat16, seed=0)
+        ms = _time_ms(lambda: sops._launch(**t))
+        plain_ms = _time_ms(lambda: sref.selective_scan_ref(**t), reps=3, inner=1)
+        # each input read once, each output written once: x, y (b,S,di) bf16,
+        # delta (b,S,di) f32, B, C (b,S,N) bf16, A (di,N) f32, D (di,) f32,
+        # h_final (b,di,N) f32
+        nbytes = b * S * di * (2 + 4 + 2) + 2 * b * S * N * 2 + di * N * 4 + di * 4 + b * di * N * 4
+        exps = b * S * di * N  # one exp(delta A) per (b, t, d, n)
+        # per (b, t, d, n): delta*A, the h fma (2), dx*B, the y fma (2)
+        flops = b * S * di * (6 * N + 3)
+        bounds = {
+            "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "operations": max(exps / SFU_EXP_PER_S, flops / F32_FLOPS_PER_S) * 1e3,
+        }
+        bound_by = max(bounds, key=bounds.get)
+        rows.append({
+            "b": b, "S": S, "di": di, "N": N, "dtype": "bfloat16", "ms": ms,
+            "plain_ms": plain_ms, "bytes": nbytes, "exps": exps, "flops": flops,
+            "bytes_ms": bounds["bytes"], "exp_ms": exps / SFU_EXP_PER_S * 1e3,
+            "flop_ms": flops / F32_FLOPS_PER_S * 1e3,
+            "bound_ms": bounds[bound_by], "bound_by": bound_by,
+        })
+    return rows
+
+
+def serve_launcher(sops):
+    """The launcher's path at the published config: batch 4, prompt 2048, 32 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = M.init_model(torch.Generator("cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompts = serve.make_prompts(cfg, 4, 2048, 0, "cuda")
+    warm = serve.generate(model, prompts, 2)  # first calls: cuBLAS, allocator
+    cold_prefill_s = warm.prefill_s
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    sops.selective_scan.launches = 0
+    run = serve.generate(model, prompts, 32)
+    launches = sops.selective_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    _require(launches == cfg.num_layers, f"prefill launched selective_scan {launches}x")
+    _require(run.tokens.shape == (4, 32), f"tokens {tuple(run.tokens.shape)}")
+    _require(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of range")
+    for name, logits in (("prefill", run.prefill_logits), ("decode", run.logits)):
+        _require(logits.shape == (4, 1, cfg.vocab), f"{name} logits {tuple(logits.shape)}")
+        _require(bool(torch.isfinite(logits.float()).all()), f"non-finite {name} logits")
+    steps = 31
+    return model, {
+        "init_s": init_s, "params": n_params, "param_bytes": param_bytes,
+        "cold_prefill_ms": cold_prefill_s * 1e3, "prefill_ms": run.prefill_s * 1e3,
+        "decode_ms_per_step": run.decode_s / steps * 1e3,
+        "decode_tok_per_s": 4 * steps / run.decode_s,
+        "peak_gb": peak / 1e9, "launches": launches,
+        "sample": run.tokens[0, :16].tolist(),
+    }
+
+
+def serve_engine(sops, model):
+    """The engine at the published config: 4 slots, 8 ragged requests, 16 tokens each."""
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    lens = rng.integers(16, 65, size=8)
+    engine = ServingEngine(model, max_slots=4, device="cuda")
+    for i, n in enumerate(lens):
+        prompt = rng.integers(0, cfg.vocab, (int(n),)).astype(np.int32)
+        engine.submit(Request(uid=i, prompt=prompt, max_new_tokens=16))
+    torch.cuda.synchronize()
+    sops.selective_scan.launches = 0
+    t0 = time.perf_counter()
+    finished = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sops.selective_scan.launches
+    _require(sorted(r.uid for r in finished) == list(range(8)), "engine lost a request")
+    _require(all(len(r.output) == 16 for r in finished), "a request ended short")
+    _require(all(0 <= t < cfg.vocab for r in finished for t in r.output), "token out of range")
+    _require(launches == cfg.num_layers * 8, f"engine launched selective_scan {launches}x")
+    return {
+        "wall_s": wall, "tok_per_s": 8 * 16 / wall, "launches": launches,
+        "prompt_lens": [int(n) for n in lens],
+    }
+
+
+def lm_slice_parity():
+    """Full width, 2 layers, float32: the same weights on the card and the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=2, dtype="float32")
+    cpu = M.init_model(torch.Generator().manual_seed(1), cfg)
+    gpu = M.LM(tree_map(lambda t: t.to("cuda"), cpu.tree()), cfg)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 40)))
+    lc, cc = M.prefill(cpu, tokens)
+    lg, cg = M.prefill(gpu, tokens.cuda())
+    out = {"prefill_logits": _err(lg.cpu(), lc)}
+    _require(_within(lg.cpu(), lc, LM_TOL), f"prefill logits differ by {out['prefill_logits']}")
+    for name in ("conv", "ssm"):
+        out[name] = _err(cg[name].cpu(), cc[name])
+        _require(_within(cg[name].cpu(), cc[name], LM_TOL), f"{name} cache differs")
+    _require(torch.equal(cg["pos"].cpu(), cc["pos"]), "pos differs")
+
+    # 4 greedy steps, both fed the CPU's tokens
+    tok = lc.argmax(-1)
+    differing, worst = [], 0.0
+    for step in range(4):
+        lc, cc = M.decode_step(cpu, cc, tok)
+        lg, cg = M.decode_step(gpu, cg, tok.cuda())
+        worst = max(worst, _err(lg.cpu(), lc))
+        want, got = lc.argmax(-1), lg.cpu().argmax(-1)
+        for i in torch.nonzero(want != got)[:, 0].tolist():
+            top2 = lc[i, 0].topk(2).values
+            gap = float(top2[0] - top2[1])
+            print(f"slice parity: decode step {step} stream {i}: card token {int(got[i, 0])}, "
+                  f"CPU token {int(want[i, 0])}, CPU top-2 gap {gap:.3e}")
+            _require(gap < LM_TOL, f"decode step {step} stream {i}: tokens differ, gap {gap}")
+            differing.append((step, i))
+        tok = want
+    out["decode_logits"] = worst
+    out["differing_tokens"] = len(differing)
+
+    # the engine on the card = sequential generation (tests/test_serving.py)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32) for n in (12, 9, 15)]
+    engine = ServingEngine(gpu, max_slots=2, device="cuda")
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+    got = {r.uid: r.output for r in engine.run_until_drained()}
+    for i, p in enumerate(prompts):
+        one = torch.as_tensor(p[None], dtype=torch.long, device="cuda")
+        ref = serve.generate(gpu, one, 6).tokens[0].tolist()
+        _require(got[i] == ref, f"engine stream {i} {got[i]} != sequential {ref}")
+    return out
+
+
 def main():
     """Run every phase; any failure raises and exits non-zero."""
     if not torch.cuda.is_available():
@@ -244,6 +463,8 @@ def main():
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.recurrent_scan import ops, ref
+    from repro_torch.kernels.selective_scan import ops as sops
+    from repro_torch.kernels.selective_scan import ref as sref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -252,10 +473,14 @@ def main():
     print(f"gpu: {gpu}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
 
+    sources = ("recurrent_scan.cu", "selective_scan.cu")
     t0 = time.perf_counter()
-    lib = build("recurrent_scan.cu")
-    print(f"build: recurrent_scan.cu -> {os.path.relpath(lib)} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
+        libs = list(pool.map(build, sources))
+    print(f"build: {', '.join(os.path.relpath(lib) for lib in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s")
 
+    # ---- slice 1: rec-IPPO (linear core)
     worst = kernel_parity(ops, ref)
     print(
         f"kernel parity: max abs err forward {worst['forward']:.3e} (tol {FWD_TOL}), "
@@ -285,8 +510,52 @@ def main():
     param_err, loss_err = slice_parity(system, state)
     print(f"slice parity: one update on the card vs the CPU, max abs param diff "
           f"{param_err:.3e}, loss diff {loss_err:.3e} (tol {SLICE_TOL})")
+    del system, state
+
+    # ---- slice 2: Falcon-Mamba-7B greedy serving
+    scan_worst = scan_parity(sops, sref)
+    for case, e in scan_worst.items():
+        print(f"kernel parity: selective_scan {case}: max abs err y {e['y']:.3e}, "
+              f"h_final {e['h_final']:.3e}")
+    scan_rows = scan_timing(sops, sref)
+    for r in scan_rows:
+        print(
+            f"kernel timing: selective_scan b={r['b']} S={r['S']} di={r['di']} N={r['N']} "
+            f"bf16: {r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.1f} us, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} (bytes {r['bytes_ms'] * 1e3:.2f} "
+            f"us for {r['bytes']} B; exp {r['exp_ms'] * 1e3:.2f} us for {r['exps']} exp; "
+            f"flop {r['flop_ms'] * 1e3:.2f} us) {tag}"
+        )
+
+    model, launcher = serve_launcher(sops)
+    print(
+        f"serve (launcher): {ARCH} 64 layers bf16, {launcher['params']} params "
+        f"({launcher['param_bytes'] / 1e9:.2f} GB), init {launcher['init_s']:.2f} s; "
+        f"batch 4 x prompt 2048: prefill {launcher['prefill_ms']:.1f} ms (cold "
+        f"{launcher['cold_prefill_ms']:.1f} ms), decode {launcher['decode_ms_per_step']:.2f} "
+        f"ms/step = {launcher['decode_tok_per_s']:.1f} tok/s over 31 steps, peak "
+        f"{launcher['peak_gb']:.2f} GB; selective_scan launches {launcher['launches']}; "
+        f"stream 0 {launcher['sample']} {tag}"
+    )
+    engine = serve_engine(sops, model)
+    print(
+        f"serve (engine): 4 slots, 8 requests (prompts {engine['prompt_lens']}) x 16 "
+        f"tokens in {engine['wall_s']:.2f} s = {engine['tok_per_s']:.1f} tok/s; "
+        f"selective_scan launches {engine['launches']} {tag}"
+    )
+    del model
+    torch.cuda.empty_cache()
+
+    lm = lm_slice_parity()
+    print(
+        f"slice parity: {ARCH} full width, 2 layers, float32, card vs CPU: prefill logits "
+        f"{lm['prefill_logits']:.3e}, conv {lm['conv']:.3e}, ssm {lm['ssm']:.3e} (tol "
+        f"{LM_TOL}); 4 decode steps: logits {lm['decode_logits']:.3e}, "
+        f"{lm['differing_tokens']} differing tokens; engine = sequential on the card"
+    )
 
     main_row = next(r for r in rows if (r["B"], r["direction"]) == (64, "forward"))
+    scan_row = scan_rows[0]
     print(json.dumps({"kernels": [{
         "name": "recurrent_scan",
         "route": "cuda",
@@ -302,11 +571,30 @@ def main():
         "shape": "T=128 B=64 H=64 forward (the minibatch unroll)",
         "by_shape": rows,
         "gpu": gpu,
+    }, {
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan/kernel.py:72",
+        "launches": launcher["launches"],
+        "launches_engine": engine["launches"],
+        "max_abs_err": max(max(e.values()) for c, e in scan_worst.items() if "float32" in c),
+        "max_abs_err_bf16": {"y": max(e["y"] for c, e in scan_worst.items() if "bfloat16" in c),
+                             "h_final": max(e["h_final"] for c, e in scan_worst.items()
+                                            if "bfloat16" in c)},
+        "ms": scan_row["ms"],
+        "plain_ms": scan_row["plain_ms"],
+        "bound_ms": scan_row["bound_ms"],
+        "bound_by": scan_row["bound_by"],
+        "library_ms": None,
+        "shape": "b=4 S=2048 di=8192 N=16 bf16 (the launcher's prefill)",
+        "by_shape": scan_rows,
+        "gpu": gpu,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,  # the run uses one card
     }}))
 
 

@@ -33,6 +33,7 @@ from repro_torch.envs import MatrixGame
 from repro_torch.kernels.recurrent_scan import linear_recurrent_scan
 from repro_torch.systems import PPOConfig, make_rec_ippo
 
+SCAN_KERNEL = "linear_scan_kernel"
 
 def _rollout(system, tenv, st, steps):
     with torch.no_grad():
@@ -67,7 +68,7 @@ def _trace_kernels(prof):
     kernels = [e for e in events if e.get("cat") == "kernel"]
     grids = collections.Counter(
         str(e.get("args", {}).get("grid")) for e in kernels
-        if "linear_scan_kernel" in e.get("name", "")
+        if SCAN_KERNEL in e.get("name", "")
     )
     return len(kernels), dict(grids)
 
@@ -77,21 +78,25 @@ def _profiled(fn, *args):
     before = linear_recurrent_scan.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out, wall = _timed(fn, *args)
-    summary = _device_summary(prof, wall)
+    summary = _device_summary(prof, wall, SCAN_KERNEL)
     summary["trace_kernel_events"], by_grid = _trace_kernels(prof)
-    summary["recurrent_scan_launches"].update(
+    summary[SCAN_KERNEL].update(
         counter=linear_recurrent_scan.launches - before, trace_by_grid=by_grid
     )
     return out, summary
 
 
-def _device_summary(prof, wall_s):
-    """Busy time, launches and top kernels of the device events in ``prof``."""
+def _device_summary(prof, wall_s, kernel):
+    """Busy time, launches and top kernels of the device events in ``prof``.
+
+    Under the key ``kernel``: the launches and device time of the kernels
+    whose name contains it.
+    """
     kernels = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
-    scan = [e for e in kernels if "linear_scan_kernel" in e.key]
+    named = [e for e in kernels if kernel in e.key]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     return {
@@ -99,8 +104,10 @@ def _device_summary(prof, wall_s):
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1 - busy_us / 1e6 / wall_s if busy_us else None,
         "kernel_launches": sum(e.count for e in kernels),
-        "recurrent_scan_device_ms": sum(e.self_device_time_total for e in scan) / 1e3,
-        "recurrent_scan_launches": {"profiler": sum(e.count for e in scan)},
+        kernel: {
+            "profiler": sum(e.count for e in named),
+            "device_ms": sum(e.self_device_time_total for e in named) / 1e3,
+        },
         "top_kernels": [
             {"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3}
             for e in top

@@ -8,7 +8,14 @@ NamedTuple of the reference (``TrainState``, ``AdamState``, ``Carry``,
 ``Transition``, ...) becomes the port's NamedTuple of the same name, found
 by name so this module never imports the reference; NamedTuples of the
 port keep their type on the way back.  Both packages store ``w`` as
-``(in, out)``, so no leaf is transposed.
+``(in, out)``, so no leaf is transposed.  bfloat16 leaves cross as their
+16-bit patterns: numpy has no bfloat16 of its own, and JAX hands them over
+as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses.
+
+`lm_params_from_jax` / `lm_params_to_jax` carry a language model: the JAX
+package stacks its layers along a leading L axis, the port keeps one module
+per layer.  A Mamba1 decode cache is stacked along L in both packages, so
+`params_from_jax` / `params_to_jax` carry it as it is.
 """
 from __future__ import annotations
 
@@ -16,7 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import Carry, EvalMetrics, SystemState, TrainState, Transition
+from repro_torch.models.model import LM
 from repro_torch.optim.optimizers import AdamState
+from repro_torch.tree import tree_map
 
 NAMEDTUPLES = {
     cls.__name__: cls
@@ -44,15 +53,43 @@ def _port_namedtuple(cls):
         raise TypeError(f"no port counterpart for NamedTuple {cls.__name__}") from None
 
 
+def _to_tensor(x):
+    arr = np.array(x)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes.bfloat16, from JAX
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _to_numpy(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # JAX's bfloat16 for numpy; only a JAX caller needs it
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_from_jax(tree, device="cpu"):
     """A tree of arrays -> the same tree of tensors on ``device``."""
-    return _convert(
-        tree,
-        lambda x: torch.from_numpy(np.array(x)).to(device),
-        _port_namedtuple,
-    )
+    return _convert(tree, lambda x: _to_tensor(x).to(device), _port_namedtuple)
 
 
 def params_to_jax(tree):
     """A tree of tensors -> the same tree of numpy arrays (on the host)."""
-    return _convert(tree, lambda x: x.detach().cpu().numpy(), lambda cls: cls)
+    return _convert(tree, _to_numpy, lambda cls: cls)
+
+
+def lm_params_from_jax(params, cfg, device="cpu") -> LM:
+    """JAX LM params (``layers`` stacked along L) -> the port's `LM`."""
+    tree = params_from_jax(params, device)
+    stacked = tree["layers"]
+    layers = [tree_map(lambda x, i=i: x[i].clone(), stacked) for i in range(cfg.num_layers)]
+    return LM({**tree, "layers": layers}, cfg)
+
+
+def lm_params_to_jax(model: LM):
+    """The port's `LM` -> JAX LM params, ``layers`` stacked along L."""
+    tree = model.tree()
+    layers = tree["layers"]
+    tree["layers"] = tree_map(lambda *xs: torch.stack(xs), layers[0], *layers[1:])
+    return params_to_jax(tree)

@@ -6,7 +6,10 @@ This file imports no JAX, so it runs on a machine that has only PyTorch:
 
 The recurrent-scan kernel is held against its plain versions (forward and
 adjoint at 1e-5, gradients at 1e-4, as in docs/KERNELS.md), and a short
-rec-IPPO run on the GPU must go through the kernel.
+rec-IPPO run on the GPU must go through the kernel.  The selective-scan
+kernel is held against its plain version (float32 at 1e-4; bfloat16 x/B/C
+with y at 2e-2, bf16's rounding, and the float32 state at 1e-4), and a
+smoke-sized Falcon-Mamba prefill on the GPU must launch it once a layer.
 """
 import pytest
 
@@ -18,6 +21,7 @@ from repro_torch.kernels.recurrent_scan import (  # noqa: E402
     scan_ref,
 )
 from repro_torch.kernels.recurrent_scan.ops import _scan  # noqa: E402
+from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref  # noqa: E402
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -84,3 +88,61 @@ def test_short_rec_ippo_run_goes_through_the_kernel(cuda):
     # 2 bootstrap unrolls + 1 epoch x 2 minibatches x 2 agents x 2 nets x (fwd + bwd)
     assert linear_recurrent_scan.launches == 2 + 16
     assert int(st.train.steps) == 1 and bool(torch.isfinite(m["loss"]).all())
+
+
+def _scan_inputs(b, S, di, N, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    t = dict(
+        x=torch.randn(b, S, di, generator=g),
+        delta=torch.randn(b, S, di, generator=g).abs() * 0.1,
+        A=-(torch.randn(di, N, generator=g).abs() + 0.5),
+        B=torch.randn(b, S, N, generator=g),
+        C=torch.randn(b, S, N, generator=g),
+        D=torch.randn(di, generator=g),
+    )
+    for k in ("x", "B", "C"):
+        t[k] = t[k].to(dtype)
+    return {k: v.to(device) for k, v in t.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,S,di,N", [(1, 64, 8192, 16), (3, 37, 200, 16), (2, 33, 130, 8),
+                                      (1, 5, 64, 4)])
+def test_selective_scan_kernel_matches_plain_version(cuda, b, S, di, N, dtype):
+    t = _scan_inputs(b, S, di, N, getattr(torch, dtype), cuda)
+    before = selective_scan.launches
+    y, h = selective_scan(**t)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    y_ref, h_ref = selective_scan_ref(**t)
+    y_tol = 1e-4 if dtype == "float32" else 2e-2
+    assert y.dtype == t["x"].dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=y_tol, rtol=y_tol)
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_selective_scan_raises_on_what_the_kernel_does_not_take(cuda):
+    t = _scan_inputs(1, 4, 32, 6, torch.float32, cuda)
+    with pytest.raises(ValueError, match="N in"):  # no instance for N = 6
+        selective_scan(**t)
+    t = _scan_inputs(1, 4, 32, 16, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="forward only"):
+        selective_scan(**{**t, "x": t["x"].requires_grad_(True)})
+
+
+@pytest.mark.cuda
+def test_smoke_prefill_launches_the_scan_once_a_layer(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_config("falcon-mamba-7b")
+    model = M.init_model(torch.Generator(cuda).manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 19), device=cuda)
+    selective_scan.launches = 0
+    logits, cache = M.prefill(model, tokens)
+    assert selective_scan.launches == cfg.num_layers
+    logits2, _ = M.decode_step(model, cache, logits.argmax(-1))
+    assert selective_scan.launches == cfg.num_layers  # decode runs no kernel
+    assert bool(torch.isfinite(logits2).all())
