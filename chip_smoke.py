@@ -5,9 +5,10 @@
 Run from the root of a checkout.  It uses the port (``src/repro_torch``)
 only, never JAX, and exits non-zero on the first phase that fails:
 
-1. build: compile both CUDA kernels (``recurrent_scan.cu``,
-   ``selective_scan.cu``) from the checkout's sources into
-   ``build/kernels/``, one nvcc each, in parallel.
+1. build: compile the four CUDA kernels (``recurrent_scan.cu``,
+   ``selective_scan.cu``, ``flash_attention.cu``, ``fused_xent.cu``) from
+   the checkout's sources into ``build/kernels/``, one nvcc each, in
+   parallel.
 
 rec-IPPO (linear core), the first slice:
 
@@ -40,6 +41,29 @@ Falcon-Mamba-7B greedy serving, the second slice:
     on the card and on the CPU: prefill logits and caches at 1e-4, then 4
     decode steps on equal tokens; the engine on the card equals
     sequential generation.
+
+InternLM2-1.8B dense LM training, the third slice:
+
+11. kernel parity: flash_attention against its plain version (forward) on
+    tests/test_kernels.py's sweep (ragged S 200, window 96, GQA, head_dim
+    80, bf16), at the training shape (4, 16/8, 4096, 128) bf16, and
+    non-causal on a ragged S; 2e-5 in float32, in bf16 2**-6 of the
+    attention of |v| an element and 1e-2 of a query row's norm.  fused_xent
+    against its plain version on tests/test_kernels.py's sweep (V = 77,
+    ragged T) at 1e-4 in float32 and 2e-2 a token in bf16 (both round the
+    logits to bf16) with 1e-4 a token on average, and at the training
+    shape (16,384, 2048, 92,544) bf16;
+12. kernel timing at the training shapes, with PyTorch's
+    scaled_dot_product_attention timed beside flash_attention as a
+    yardstick (the port never calls it);
+13. train: the launcher (`repro_torch.launch.train.main`) at the published
+    config (24 layers, bf16, remat) for 6 steps of batch 4 x 4096 tokens;
+    losses finite, 48 flash_attention launches a step (remat runs each
+    layer's forward twice) and 1 fused_xent launch; then one more step
+    under torch.profiler;
+14. slice parity: full width cut to 2 layers in float32, batch 1 x 256,
+    the same weights on the card and on the CPU: the loss, every gradient
+    and the parameters after one train step at 1e-4.
 
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
@@ -76,6 +100,30 @@ SCAN_BF16_Y_TOL = 2e-2  # y rounded to bf16: one bf16 step is 2**-8 relative
 SCAN_PATH_SHAPES = [(4, 2048, 8192, 16), (1, 64, 8192, 16)]  # (b, S, di, N): prefill, admission
 SCAN_RAGGED = (3, 37, 200, 16)  # S not a chunk multiple, di not a block multiple
 LM_TOL = 1e-4  # 2 layers at full width in float32: other sum orders on the card
+
+DENSE_ARCH = "internlm2-1.8b"
+BF16_FLOPS_PER_S = 989e12  # the same sheet: dense bf16 on the tensor cores
+# flash_attention and fused_xent: the tolerances and their reasons are in
+# each kernel's ref.py (`kernel_errors`)
+# (B, Hq, Hkv, S, hd, causal, window, dtype): tests/test_kernels.py:19-27, the
+# training shape, and non-causal calls on a ragged S
+FLASH_CASES = [
+    (2, 4, 2, 256, 64, True, 0, torch.float32),
+    (1, 4, 4, 128, 32, True, 0, torch.float32),
+    (2, 8, 2, 200, 64, True, 0, torch.float32),
+    (1, 4, 1, 256, 64, True, 96, torch.float32),
+    (1, 2, 2, 128, 128, True, 0, torch.bfloat16),
+    (1, 6, 3, 160, 80, True, 64, torch.float32),
+    (1, 6, 3, 160, 80, True, 64, torch.bfloat16),
+    (4, 16, 8, 4096, 128, True, 0, torch.bfloat16),
+    (1, 4, 2, 200, 64, False, 0, torch.float32),
+    (1, 4, 2, 200, 64, False, 0, torch.bfloat16),
+    (1, 4, 2, 200, 64, False, 50, torch.float32),
+]
+FLASH_PATH = (4, 16, 8, 4096, 128)  # InternLM2-1.8B at batch 4 x 4096
+XENT_CASES = [(64, 128, 1000), (100, 64, 512), (128, 32, 2048), (32, 16, 77)]  # :93-98
+XENT_PATH = (16384, 2048, 92544)  # (B*S, d_model, vocab)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 4096
 
 
 def _require(cond, msg):
@@ -455,6 +503,191 @@ def lm_slice_parity():
     return out
 
 
+def _attn_inputs(B, Hq, Hkv, S, hd, dtype, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    return [torch.randn(B, H, S, hd, generator=g, device="cuda").to(dtype)
+            for H in (Hq, Hkv, Hkv)]
+
+
+def flash_parity(fops, fref):
+    """flash_attention against its plain version, forward (`ref.kernel_errors`)."""
+    worst = {}
+    for B, Hq, Hkv, S, hd, causal, window, dtype in FLASH_CASES:
+        q, k, v = _attn_inputs(B, Hq, Hkv, S, hd, dtype, seed=S + hd)
+        out = fops.flash_attention(q, k, v, causal=causal, window=window)
+        elem, row, max_abs = fref.kernel_errors(out, q, k, v, causal=causal, window=window)
+        case = (f"B={B} Hq={Hq} Hkv={Hkv} S={S} hd={hd} causal={causal} window={window} "
+                f"{str(dtype)[6:]}")
+        _require(out.dtype == dtype, f"flash output dtype: {case}")
+        _require(elem <= 1 and row <= fref.ROW_TOL,
+                 f"flash_attention differs: {case}: {elem:.3f} of the element allowance, "
+                 f"row {row:.3e}")
+        worst[case] = {"abs": max_abs, "elem": elem, "row": row}
+        del q, k, v, out
+    return worst
+
+
+def xent_parity(xops, xref):
+    """fused_xent against its plain version, float32 and bf16 (`ref.kernel_errors`)."""
+    worst = {}
+    cases = [(T, d, V, dt) for T, d, V in XENT_CASES for dt in (torch.float32, torch.bfloat16)]
+    for T, d, V, dtype in cases + [(*XENT_PATH, torch.bfloat16)]:
+        g = torch.Generator("cuda").manual_seed(T + V)
+        x = torch.randn(T, d, generator=g, device="cuda").to(dtype)
+        w = (torch.randn(d, V, generator=g, device="cuda") * d**-0.5).to(dtype)
+        labels = torch.randint(0, V, (T,), generator=g, device="cuda")
+        got = xops.fused_softmax_xent(x, w, labels)
+        elem, total, max_abs = xref.kernel_errors(got, x, w, labels)
+        case = f"T={T} d={d} V={V} {str(dtype)[6:]}"
+        _require(elem <= 1 and total <= 1,
+                 f"fused_xent differs: {case}: {elem:.3f} of the token allowance, "
+                 f"{total:.3f} of the summed one")
+        worst[case] = {"abs": max_abs, "elem": elem, "total": total}
+        del x, w, labels, got
+    return worst
+
+
+def _bound(nbytes, flops):
+    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+              "operations": flops / BF16_FLOPS_PER_S * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    return bounds, bound_by
+
+
+def flash_timing(fops, fref):
+    """Kernel, plain, SDPA and bound times at the training shape, bf16, causal."""
+    import torch.nn.functional as F
+
+    B, Hq, Hkv, S, hd = FLASH_PATH
+    q, k, v = _attn_inputs(B, Hq, Hkv, S, hd, torch.bfloat16, seed=0)
+    ms = _time_ms(lambda: fops._launch(q, k, v, True, 0), reps=10, inner=2)
+    plain_ms = _time_ms(lambda: fref.attention_ref(q, k, v), reps=3, inner=1)
+    library_ms = _time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        reps=10, inner=5)
+    # each input read once, the output written once; two products over the
+    # S (S + 1) / 2 live (query, key) pairs of each (b, h)
+    nbytes = 2 * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
+    flops = 4 * hd * (S * (S + 1) // 2) * B * Hq
+    bounds, bound_by = _bound(nbytes, flops)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
+            "flops": flops, "bytes_ms": bounds["bytes"], "flop_ms": bounds["operations"],
+            "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} hd={hd} causal bf16"}
+
+
+def xent_timing(xops, xref):
+    """Kernel, plain and bound times at the training shape, bf16."""
+    T, d, V = XENT_PATH
+    g = torch.Generator("cuda").manual_seed(0)
+    x = torch.randn(T, d, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(d, V, generator=g, device="cuda") * d**-0.5).to(torch.bfloat16)
+    labels = torch.randint(0, V, (T,), generator=g, device="cuda", dtype=torch.int32)
+    ms = _time_ms(lambda: xops._launch(x, w, labels), reps=3, inner=1)
+    plain_ms = _time_ms(lambda: xref.softmax_xent_ref(x, w, labels), reps=5, inner=1)
+    # x, w, labels read once, the loss written once; 2 T d V for the product
+    nbytes = T * d * 2 + d * V * 2 + T * 4 + T * 4
+    flops = 2 * T * d * V
+    bounds, bound_by = _bound(nbytes, flops)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes,
+            "flops": flops, "bytes_ms": bounds["bytes"], "flop_ms": bounds["operations"],
+            "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "shape": f"T={T} d={d} V={V} bf16"}
+
+
+def train_lm(fops, xops):
+    """The launcher at the published config, then one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.breakdown import _device_summary
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+
+    torch.cuda.reset_peak_memory_stats()
+    fops.flash_attention.launches = 0
+    xops.fused_softmax_xent.launches = 0
+    run = train.main(["--arch", DENSE_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+                      str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", "3e-4",
+                      "--log-every", "1"])
+    flash_launches = fops.flash_attention.launches
+    xent_launches = xops.fused_softmax_xent.launches
+    peak = torch.cuda.max_memory_allocated()
+    cfg = run.model.cfg
+    _require(len(run.losses) == TRAIN_STEPS and all(np.isfinite(run.losses)),
+             f"losses {run.losses}")
+    _require(flash_launches == 2 * cfg.num_layers * TRAIN_STEPS,
+             f"flash_attention launched {flash_launches}x in {TRAIN_STEPS} steps")
+    _require(xent_launches == TRAIN_STEPS,
+             f"fused_xent launched {xent_launches}x in {TRAIN_STEPS} steps")
+    step_s = statistics.median(run.step_s[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in run.model.parameters())
+    # the reference's count leaves out the final norm's d_model scales
+    _require(n_params == cfg.param_count() + cfg.d_model,
+             f"{n_params} params, config says {cfg.param_count()}")
+
+    # one more step under the profiler
+    _, step = make_train_step(cfg, 3e-4)
+    host = SyntheticTokenDataset(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=1).sample(
+        np.random.default_rng(1))
+    batch = {name: torch.as_tensor(host[name], device="cuda") for name in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, metrics = step(run.model, run.opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _require(bool(torch.isfinite(metrics["loss"])), "non-finite profiled loss")
+    summary = _device_summary(prof, wall, "flash_attention_", "fused_xent_")
+    seen = (summary["flash_attention_"]["profiler"], summary["fused_xent_"]["profiler"])
+    _require(seen == (2 * cfg.num_layers, 1), f"the profiler saw (flash, xent) launches {seen}")
+    return {
+        "params": n_params, "losses": run.losses, "step_s": run.step_s,
+        "step_s_median": step_s, "tokens_per_s": tokens / step_s,
+        "six_n_share": M.model_flops_per_token(cfg) * tokens / step_s / BF16_FLOPS_PER_S,
+        "peak_gb": peak / 1e9, "flash_launches": flash_launches, "xent_launches": xent_launches,
+        "profiled": summary,
+    }
+
+
+def dense_slice_parity():
+    """Full width, 2 layers, float32, batch 1 x 256: card vs CPU, one train step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2, dtype="float32")
+    cpu = M.init_model(torch.Generator().manual_seed(1), cfg)
+    gpu = M.LM(tree_map(lambda t: t.to("cuda", copy=True), cpu.tree()), cfg)
+    host = SyntheticTokenDataset(cfg.vocab, 256, 1, seed=2).sample(np.random.default_rng(2))
+    results = []
+    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        batch = {name: torch.as_tensor(host[name], device=dev) for name in ("tokens", "labels")}
+        loss, _ = M.forward_train(model, batch)
+        loss.backward()
+        grads = tree_leaves(model.tree(lambda p: p.grad))
+        for p in model.parameters():
+            p.grad = None
+        opt, step = make_train_step(cfg, 3e-4)
+        model, _, metrics = step(model, opt.init(model.tree()), batch)
+        results.append((float(loss.detach()), [g.cpu() for g in grads],
+                        [p.cpu() for p in tree_leaves(model.tree())], float(metrics["loss"])))
+    (lg, gg, pg, mg), (lc, gc, pc, mc) = results
+    out = {"loss": abs(lg - lc), "step_loss": abs(mg - mc),
+           "grads": max(_err(x, y) for x, y in zip(gg, gc)),
+           "params": max(_err(x, y) for x, y in zip(pg, pc))}
+    _require(abs(lg - lc) <= LM_TOL * (1 + abs(lc)), f"loss {lg} on the card, {lc} on the CPU")
+    _require(abs(mg - mc) <= LM_TOL * (1 + abs(mc)), "train step loss differs")
+    for name, xs, ys in (("gradient", gg, gc), ("parameter", pg, pc)):
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            _require(_within(x, y, LM_TOL), f"{name} leaf {i} differs by {_err(x, y)}")
+    return out
+
+
 def main():
     """Run every phase; any failure raises and exits non-zero."""
     if not torch.cuda.is_available():
@@ -463,6 +696,10 @@ def main():
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels.recurrent_scan import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    from repro_torch.kernels.fused_xent import ops as xops
+    from repro_torch.kernels.fused_xent import ref as xref
     from repro_torch.kernels.selective_scan import ops as sops
     from repro_torch.kernels.selective_scan import ref as sref
 
@@ -473,7 +710,7 @@ def main():
     print(f"gpu: {gpu}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
 
-    sources = ("recurrent_scan.cu", "selective_scan.cu")
+    sources = ("recurrent_scan.cu", "selective_scan.cu", "flash_attention.cu", "fused_xent.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         libs = list(pool.map(build, sources))
@@ -554,6 +791,63 @@ def main():
         f"{lm['differing_tokens']} differing tokens; engine = sequential on the card"
     )
 
+    # ---- slice 3: InternLM2-1.8B dense LM training
+    t0 = time.perf_counter()
+    flash_worst = flash_parity(fops, fref)
+    for case, e in flash_worst.items():
+        print(f"kernel parity: flash_attention {case}: max abs err {e['abs']:.3e}, "
+              f"{e['elem']:.3f} of the element allowance, max row err {e['row']:.3e} (tol "
+              f"{fref.ROW_TOL})")
+    xent_worst = xent_parity(xops, xref)
+    for case, e in xent_worst.items():
+        print(f"kernel parity: fused_xent {case}: max abs err {e['abs']:.3e}, "
+              f"{e['elem']:.3f} of the token allowance, {e['total']:.3f} of the summed one")
+    flash_row = flash_timing(fops, fref)
+    xent_row = xent_timing(xops, xref)
+    for name, r in (("flash_attention", flash_row), ("fused_xent", xent_row)):
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+        print(
+            f"kernel timing: {name} {r['shape']}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+            f"ms, library {lib}, bound {r['bound_ms']:.3f} ms by {r['bound_by']} (bytes "
+            f"{r['bytes_ms']:.3f} ms for {r['bytes']} B; flop {r['flop_ms']:.3f} ms for "
+            f"{r['flops']} flop at 989 TFLOP/s) {tag}"
+        )
+    print(f"slice 3 kernels: parity and timing in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    lm_train = train_lm(fops, xops)
+    prof = lm_train["profiled"]
+    print(
+        f"train: {DENSE_ARCH} 24 layers bf16 remat, {lm_train['params']} params, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: {TRAIN_STEPS} steps, walls "
+        f"{[round(x, 3) for x in lm_train['step_s']]} s; median after the first "
+        f"{lm_train['step_s_median']:.3f} s = {lm_train['tokens_per_s']:.0f} tokens/s, 6N "
+        f"share {lm_train['six_n_share']:.4f} of 989 TFLOP/s; peak {lm_train['peak_gb']:.2f} "
+        f"GB; losses {[round(x, 4) for x in lm_train['losses']]}; flash_attention launches "
+        f"{lm_train['flash_launches']} ({lm_train['flash_launches'] // TRAIN_STEPS} a step), "
+        f"fused_xent {lm_train['xent_launches']} {tag}"
+    )
+    print(
+        f"train (profiled step): wall {prof['wall_s']:.3f} s, device busy "
+        f"{prof['device_busy_s']:.3f} s, idle share {prof['device_idle_share']:.4f}, "
+        f"{prof['kernel_launches']} kernel launches; flash_attention "
+        f"{prof['flash_attention_']}, fused_xent {prof['fused_xent_']} {tag}"
+    )
+    print("train (profiled step) top kernels: " + json.dumps(prof["top_kernels"]))
+    lm_train_flash, lm_train_xent = lm_train["flash_launches"], lm_train["xent_launches"]
+    del lm_train
+    torch.cuda.empty_cache()
+    print(f"slice 3 training in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    dense = dense_slice_parity()
+    print(
+        f"slice parity: {DENSE_ARCH} full width, 2 layers, float32, batch 1 x 256, card vs "
+        f"CPU: loss {dense['loss']:.3e}, grads {dense['grads']:.3e}, params after one step "
+        f"{dense['params']:.3e}, step loss {dense['step_loss']:.3e} (tol {LM_TOL}) in "
+        f"{time.perf_counter() - t0:.1f} s"
+    )
+
     main_row = next(r for r in rows if (r["B"], r["direction"]) == (64, "forward"))
     scan_row = scan_rows[0]
     print(json.dumps({"kernels": [{
@@ -589,6 +883,30 @@ def main():
         "library_ms": None,
         "shape": "b=4 S=2048 di=8192 N=16 bf16 (the launcher's prefill)",
         "by_shape": scan_rows,
+        "gpu": gpu,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
+        "launches": lm_train_flash,
+        "max_abs_err": max(e["abs"] for c, e in flash_worst.items() if "float32" in c),
+        "max_abs_err_bf16": max(e["abs"] for c, e in flash_worst.items() if "bfloat16" in c),
+        "max_row_err_bf16": max(e["row"] for c, e in flash_worst.items() if "bfloat16" in c),
+        **{key: flash_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "shape")},
+        "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        "gpu": gpu,
+    }, {
+        "name": "fused_xent",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_xent.cu",
+        "replaces": "src/repro/kernels/fused_xent/kernel.py:67",
+        "launches": lm_train_xent,
+        "max_abs_err": max(e["abs"] for c, e in xent_worst.items() if "float32" in c),
+        "max_abs_err_bf16": max(e["abs"] for c, e in xent_worst.items() if "bfloat16" in c),
+        **{key: xent_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "shape")},
         "gpu": gpu,
     }]}))
     print(json.dumps({"ok": True, "device": {

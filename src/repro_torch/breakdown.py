@@ -86,33 +86,35 @@ def _profiled(fn, *args):
     return out, summary
 
 
-def _device_summary(prof, wall_s, kernel):
+def _device_summary(prof, wall_s, *names):
     """Busy time, launches and top kernels of the device events in ``prof``.
 
-    Under the key ``kernel``: the launches and device time of the kernels
-    whose name contains it.
+    Under each key of ``names``: the launches and device time of the
+    kernels whose name contains it.
     """
     kernels = [
         e for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
-    named = [e for e in kernels if kernel in e.key]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    return {
+    summary = {
         "wall_s": wall_s,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1 - busy_us / 1e6 / wall_s if busy_us else None,
         "kernel_launches": sum(e.count for e in kernels),
-        kernel: {
-            "profiler": sum(e.count for e in named),
-            "device_ms": sum(e.self_device_time_total for e in named) / 1e3,
-        },
         "top_kernels": [
             {"name": e.key[:80], "count": e.count, "device_ms": e.self_device_time_total / 1e3}
             for e in top
         ],
     }
+    for name in names:
+        named = [e for e in kernels if name in e.key]
+        summary[name] = {
+            "profiler": sum(e.count for e in named),
+            "device_ms": sum(e.self_device_time_total for e in named) / 1e3,
+        }
+    return summary
 
 
 def main(argv=None):

@@ -24,6 +24,7 @@ SMOKE = ModelConfig(
     ssm_expand=2,
     ssm_conv=4,
     mamba_version=1,
+    xent_chunk=16,
     dtype="float32",
     source="arXiv:2410.05355",
 )

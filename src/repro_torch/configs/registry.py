@@ -21,7 +21,7 @@ KNOWN_ARCH_IDS: Tuple[str, ...] = (
     "musicgen-large",
     "llama3-405b",
 )
-ARCH_IDS: Tuple[str, ...] = ("falcon-mamba-7b",)
+ARCH_IDS: Tuple[str, ...] = ("internlm2-1.8b", "falcon-mamba-7b")
 
 
 def _module(arch_id: str):

@@ -12,10 +12,14 @@ port keep their type on the way back.  Both packages store ``w`` as
 16-bit patterns: numpy has no bfloat16 of its own, and JAX hands them over
 as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses.
 
-`lm_params_from_jax` / `lm_params_to_jax` carry a language model: the JAX
-package stacks its layers along a leading L axis, the port keeps one module
-per layer.  A Mamba1 decode cache is stacked along L in both packages, so
-`params_from_jax` / `params_to_jax` carry it as it is.
+`lm_params_from_jax` / `lm_params_to_jax` carry a language model (dense or
+Mamba1): the JAX package stacks its layers along a leading L axis, the port
+keeps one module per layer.  `lm_opt_state_from_jax` / `lm_opt_state_to_jax`
+carry the LM optimizer state of `launch.steps.make_optimizer` (the
+``chain`` tuple of ``()`` and ``AdamState(count, mu, nu)``, with ``mu`` and
+``nu`` shaped like the parameters) the same way.  A Mamba1 decode cache is
+stacked along L in both packages, so `params_from_jax` / `params_to_jax`
+carry it as it is.
 """
 from __future__ import annotations
 
@@ -79,17 +83,44 @@ def params_to_jax(tree):
     return _convert(tree, _to_numpy, lambda cls: cls)
 
 
+def _unstack_layers(tree, num_layers):
+    """``tree["layers"]`` stacked along L -> a list of L per-layer trees."""
+    stacked = tree["layers"]
+    layers = [tree_map(lambda x, i=i: x[i].clone(), stacked) for i in range(num_layers)]
+    return {**tree, "layers": layers}
+
+
+def _stack_layers(tree):
+    """``tree["layers"]`` a list of per-layer trees -> stacked along L."""
+    layers = tree["layers"]
+    return {**tree, "layers": tree_map(lambda *xs: torch.stack(xs), layers[0], *layers[1:])}
+
+
 def lm_params_from_jax(params, cfg, device="cpu") -> LM:
     """JAX LM params (``layers`` stacked along L) -> the port's `LM`."""
-    tree = params_from_jax(params, device)
-    stacked = tree["layers"]
-    layers = [tree_map(lambda x, i=i: x[i].clone(), stacked) for i in range(cfg.num_layers)]
-    return LM({**tree, "layers": layers}, cfg)
+    return LM(_unstack_layers(params_from_jax(params, device), cfg.num_layers), cfg)
 
 
 def lm_params_to_jax(model: LM):
     """The port's `LM` -> JAX LM params, ``layers`` stacked along L."""
-    tree = model.tree()
-    layers = tree["layers"]
-    tree["layers"] = tree_map(lambda *xs: torch.stack(xs), layers[0], *layers[1:])
-    return params_to_jax(tree)
+    return params_to_jax(_stack_layers(model.tree()))
+
+
+def _map_adam(state, fn):
+    """Apply ``fn`` to ``mu`` and ``nu`` of every `AdamState` in a chain state."""
+    return tuple(
+        s._replace(mu=fn(s.mu), nu=fn(s.nu)) if isinstance(s, AdamState) else s
+        for s in state
+    )
+
+
+def lm_opt_state_from_jax(state, cfg, device="cpu"):
+    """JAX LM optimizer state (layers stacked along L) -> the port's."""
+    return _map_adam(
+        params_from_jax(state, device), lambda t: _unstack_layers(t, cfg.num_layers)
+    )
+
+
+def lm_opt_state_to_jax(state):
+    """The port's LM optimizer state -> JAX's, layers stacked along L."""
+    return params_to_jax(_map_adam(state, _stack_layers))

@@ -3,7 +3,8 @@
 `ModelConfig` carries the fields that the ported code reads, under the JAX
 config's names and defaults; a field joins when code that reads it is
 ported.  ``use_pallas`` is not carried over: the port picks a kernel or its
-plain version by the device a tensor lies on.
+plain version by the device a tensor lies on.  The parameter counts cover
+the families the port runs (dense and mamba1) and raise for the others.
 """
 from __future__ import annotations
 
@@ -21,6 +22,10 @@ class ModelConfig:
     num_layers: int
     d_model: int
     vocab: int
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    head_dim: int = 0  # 0 -> d_model // num_heads
 
     # --- SSM (mamba) ---
     ssm_state: int = 0
@@ -28,11 +33,23 @@ class ModelConfig:
     ssm_expand: int = 2
     mamba_version: int = 1
 
-    # --- numerics ---
+    # --- attention variants ---
+    attn_window: int = 0  # 0 = full causal; >0 = sliding window size
+    rope_theta: float = 10000.0
+    attn_chunk: int = 512  # query rows per block of the attention backward
+
+    # --- numerics / training ---
+    grad_accum: int = 1  # microbatches per train step
     dtype: str = "bfloat16"
+    remat: bool = True
+    xent_chunk: int = 512  # sequence chunk of the loss's backward
 
     # citation for the assigned config
     source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
     @property
     def activation_dtype(self) -> torch.dtype:
@@ -47,15 +64,19 @@ class ModelConfig:
     def param_count(self) -> int:
         """Approximate parameter count, by the JAX config's formula.
 
-        Like the reference it leaves out ``conv_b`` and ``dt_proj_b``
-        (``2 * d_inner`` per layer).  Only the families the port runs are
-        counted.
+        Like the reference, the mamba1 count leaves out ``conv_b`` and
+        ``dt_proj_b`` (``2 * d_inner`` per layer).
         """
+        d, L, v = self.d_model, self.num_layers, self.vocab
+        if self.arch_type == "dense":
+            hd, nq, nkv = self.head_dim, self.num_heads, self.num_kv_heads
+            attn = d * hd * (nq + 2 * nkv) + nq * hd * d
+            per_layer = attn + 3 * d * self.d_ff + 2 * d
+            return int(2 * v * d + L * per_layer)
         if (self.arch_type, self.mamba_version) != ("ssm", 1):
             raise NotImplementedError(
                 f"param_count: the {self.arch_type!r} family is not ported yet"
             )
-        d, L, v = self.d_model, self.num_layers, self.vocab
         di, n = self.d_inner, self.ssm_state
         dt_rank = max(1, d // 16)
         per_layer = (
@@ -68,3 +89,11 @@ class ModelConfig:
             + d
         )
         return int(2 * v * d + L * per_layer)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token: all of them in the ported families."""
+        return self.param_count()
+
+    def flops_param_count(self) -> int:
+        """Parameters as counted by 6·N·D: no ported family shares weights."""
+        return self.active_param_count()

@@ -65,7 +65,7 @@ class Mamba1(Params):
     """One Mamba1 mixer: `init_mamba1`'s parameters plus the config."""
 
     def __init__(self, tensors, cfg):
-        super().__init__(tensors)
+        super().__init__(tensors, trainable=False)  # Mamba1 training is not ported
         self.cfg = cfg
 
     def forward(self, x):

@@ -49,7 +49,12 @@ def clip_by_global_norm(max_norm: float) -> Optimizer:
         del params
         norm = global_norm(grads)
         factor = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-        return tree_map(lambda g: g * factor, grads), state
+        # JAX promotes a bfloat16 gradient times the float32 factor to
+        # float32; PyTorch would keep bfloat16 (a 0-dim operand does not
+        # promote), so promote by hand
+        return tree_map(
+            lambda g: g.to(torch.promote_types(g.dtype, factor.dtype)) * factor, grads
+        ), state
 
     return Optimizer(init, update)
 

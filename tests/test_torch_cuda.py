@@ -10,6 +10,14 @@ rec-IPPO run on the GPU must go through the kernel.  The selective-scan
 kernel is held against its plain version (float32 at 1e-4; bfloat16 x/B/C
 with y at 2e-2, bf16's rounding, and the float32 state at 1e-4), and a
 smoke-sized Falcon-Mamba prefill on the GPU must launch it once a layer.
+The flash-attention and fused-xent kernels are held against their plain
+versions by each one's `ref.kernel_errors` (flash: 2e-5 in float32; in
+bfloat16 2**-6 of the attention of |v| an element and 1e-2 of a query
+row's norm; xent: 1e-4 in float32; in bfloat16, where both round the
+logits to bfloat16, 2e-2 a token and 1e-4 a token on average),
+and a smoke-sized InternLM2 train step on the GPU must launch the flash
+kernel twice a layer (remat runs each layer's forward again) and the
+xent kernel once.
 """
 import pytest
 
@@ -21,6 +29,10 @@ from repro_torch.kernels.recurrent_scan import (  # noqa: E402
     scan_ref,
 )
 from repro_torch.kernels.recurrent_scan.ops import _scan  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.fused_xent import fused_softmax_xent  # noqa: E402
+from repro_torch.kernels.fused_xent import ref as xent_ref  # noqa: E402
 from repro_torch.kernels.selective_scan import selective_scan, selective_scan_ref  # noqa: E402
 
 FWD_TOL = 1e-5
@@ -146,3 +158,72 @@ def test_smoke_prefill_launches_the_scan_once_a_layer(cuda):
     logits2, _ = M.decode_step(model, cache, logits.argmax(-1))
     assert selective_scan.launches == cfg.num_layers  # decode runs no kernel
     assert bool(torch.isfinite(logits2).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,hd,causal,window", [
+    (2, 8, 2, 200, 64, True, 0),     # ragged S, GQA
+    (1, 4, 1, 256, 64, True, 96),    # sliding window
+    (1, 6, 3, 160, 80, True, 64),    # head_dim 80
+    (1, 4, 4, 77, 32, False, 0),     # non-causal, ragged: keys >= S masked
+    (1, 2, 1, 300, 128, False, 40),  # non-causal window
+])
+def test_flash_attention_kernel_matches_plain_version(cuda, B, Hq, Hkv, S, hd, causal, window,
+                                                      dtype):
+    g = torch.Generator().manual_seed(S)
+    q, k, v = (torch.randn(B, H, S, hd, generator=g).to(cuda, getattr(torch, dtype))
+               for H in (Hq, Hkv, Hkv))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == q.dtype
+    elem, row, _ = flash_ref.kernel_errors(out, q, k, v, causal=causal, window=window)
+    assert elem <= 1 and row <= flash_ref.ROW_TOL, (elem, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,d,V", [(64, 128, 1000), (100, 64, 512), (32, 16, 77), (130, 96, 70)])
+def test_fused_xent_kernel_matches_plain_version(cuda, T, d, V, dtype):
+    g = torch.Generator().manual_seed(T)
+    x = torch.randn(T, d, generator=g).to(cuda, getattr(torch, dtype))
+    w = (torch.randn(d, V, generator=g) * 0.05).to(cuda, getattr(torch, dtype))
+    labels = torch.randint(0, V, (T,), generator=g).to(cuda)
+    before = fused_softmax_xent.launches
+    loss = fused_softmax_xent(x, w, labels)
+    torch.cuda.synchronize()
+    assert fused_softmax_xent.launches == before + 1
+    elem, total, _ = xent_ref.kernel_errors(loss, x, w, labels)
+    assert elem <= 1 and total <= 1, (elem, total)
+
+
+@pytest.mark.cuda
+def test_new_kernels_raise_on_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim in"):  # no instance for hd = 48
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError):  # a CUDA input is checked, not routed to the CPU
+        flash_attention(q, q.cpu(), q)
+    x, w = torch.zeros(4, 8, device=cuda), torch.zeros(8, 10, device=cuda)
+    with pytest.raises(ValueError):
+        fused_softmax_xent(x, w, torch.zeros(4, dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_smoke_train_step_goes_through_both_kernels(cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_config("internlm2-1.8b")
+    model = M.init_model(torch.Generator(cuda).manual_seed(0), cfg)
+    opt, step = make_train_step(cfg)
+    state = opt.init(model.tree())
+    toks = torch.randint(0, cfg.vocab, (2, 33), device=cuda)
+    flash_attention.launches = fused_softmax_xent.launches = 0
+    model, state, metrics = step(model, state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert flash_attention.launches == 2 * cfg.num_layers
+    assert fused_softmax_xent.launches == 1
+    assert bool(torch.isfinite(metrics["loss"]))

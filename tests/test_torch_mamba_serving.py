@@ -33,7 +33,7 @@ from repro.models import model as JM  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
 from repro.serving.engine import Request as JaxRequest  # noqa: E402
 from repro.serving.engine import ServingEngine as JaxEngine  # noqa: E402
-from repro_torch.configs import KNOWN_ARCH_IDS, get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import ARCH_IDS, KNOWN_ARCH_IDS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
     lm_params_from_jax,
     lm_params_to_jax,
@@ -84,7 +84,7 @@ def test_configs_registry_and_init_match_the_reference():
     assert get_config(ARCH).activation_dtype == torch.bfloat16
     assert get_config(ARCH).param_count() == 7_271_612_416
     for arch in KNOWN_ARCH_IDS:
-        if arch != ARCH:
+        if arch not in ARCH_IDS:
             with pytest.raises(NotImplementedError, match=arch):
                 get_config(arch)
     with pytest.raises(KeyError):
