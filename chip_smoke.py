@@ -8,7 +8,8 @@ only, never JAX, and exits non-zero on the first phase that fails:
 1. build: compile the four CUDA kernels (``recurrent_scan.cu``,
    ``selective_scan.cu``, ``flash_attention.cu``, ``fused_xent.cu``) from
    the checkout's sources into ``build/kernels/``, one nvcc each, in
-   parallel.
+   parallel, and print each kernel's registers, shared memory and spills
+   from the compiler's ``-Xptxas -v`` report.
 
 rec-IPPO (linear core), the first slice:
 
@@ -46,20 +47,27 @@ InternLM2-1.8B dense LM training, the third slice:
 
 11. kernel parity: flash_attention against its plain version (forward) on
     tests/test_kernels.py's sweep (ragged S 200, window 96, GQA, head_dim
-    80, bf16), at the training shape (4, 16/8, 4096, 128) bf16, and
-    non-causal on a ragged S; 2e-5 in float32, in bf16 2**-6 of the
-    attention of |v| an element and 1e-2 of a query row's norm.  fused_xent
-    against its plain version on tests/test_kernels.py's sweep (V = 77,
-    ragged T) at 1e-4 in float32 and 2e-2 a token in bf16 (both round the
-    logits to bf16) with 1e-4 a token on average, and at the training
-    shape (16,384, 2048, 92,544) bf16;
+    80, bf16), at the training shape (4, 16/8, 4096, 128) bf16, non-causal
+    on a ragged S, and at the bf16 wgmma design's tile edges (S = 127, 129,
+    200 around 128-row query tiles, causal and not; windows that start
+    inside a 128-key tile); 2e-5 in float32, in bf16 2**-6 of the attention
+    of |v| an element and 1e-2 of a query row's norm.  fused_xent against
+    its plain version on tests/test_kernels.py's sweep (V = 77, ragged T),
+    at the bf16 design's edges (T = 129, V = 255 and 257 around 256-wide
+    vocab tiles, d and V that are not multiples of 8), at 1e-4 in float32
+    and 2e-2 a token in bf16 (both round the logits to bf16) with 1e-4 a
+    token on average, and at the training shape (16,384, 2048, 92,544)
+    bf16;
 12. kernel timing at the training shapes, with PyTorch's
     scaled_dot_product_attention timed beside flash_attention as a
-    yardstick (the port never calls it);
+    yardstick and the cuBLAS product ``x @ w`` beside fused_xent as context
+    for its GEMM part (``gemm_ms``; it does not compute the loss); the port
+    calls neither;
 13. train: the launcher (`repro_torch.launch.train.main`) at the published
     config (24 layers, bf16, remat) for 6 steps of batch 4 x 4096 tokens;
     losses finite, 48 flash_attention launches a step (remat runs each
-    layer's forward twice) and 1 fused_xent launch; then one more step
+    layer's forward twice), 1 fused_xent launch and 1 launch of its
+    combine kernel (bf16 cuts the vocab into splits); then one more step
     under torch.profiler;
 14. slice parity: full width cut to 2 layers in float32, batch 1 x 256,
     the same weights on the card and on the CPU: the loss, every gradient
@@ -106,7 +114,8 @@ BF16_FLOPS_PER_S = 989e12  # the same sheet: dense bf16 on the tensor cores
 # flash_attention and fused_xent: the tolerances and their reasons are in
 # each kernel's ref.py (`kernel_errors`)
 # (B, Hq, Hkv, S, hd, causal, window, dtype): tests/test_kernels.py:19-27, the
-# training shape, and non-causal calls on a ragged S
+# training shape, non-causal calls on a ragged S, and the bf16 wgmma design's
+# edges (128-row query tiles, 128-key tiles, windows starting inside a tile)
 FLASH_CASES = [
     (2, 4, 2, 256, 64, True, 0, torch.float32),
     (1, 4, 4, 128, 32, True, 0, torch.float32),
@@ -119,9 +128,19 @@ FLASH_CASES = [
     (1, 4, 2, 200, 64, False, 0, torch.float32),
     (1, 4, 2, 200, 64, False, 0, torch.bfloat16),
     (1, 4, 2, 200, 64, False, 50, torch.float32),
+    (1, 4, 2, 127, 128, True, 0, torch.bfloat16),
+    (1, 4, 2, 127, 128, False, 0, torch.bfloat16),
+    (1, 4, 2, 129, 128, True, 0, torch.bfloat16),
+    (1, 4, 2, 129, 64, False, 0, torch.bfloat16),
+    (2, 8, 2, 200, 128, True, 0, torch.bfloat16),
+    (1, 4, 2, 200, 128, False, 0, torch.bfloat16),
+    (1, 2, 1, 300, 128, True, 70, torch.bfloat16),
+    (1, 2, 2, 384, 64, True, 200, torch.bfloat16),
 ]
 FLASH_PATH = (4, 16, 8, 4096, 128)  # InternLM2-1.8B at batch 4 x 4096
-XENT_CASES = [(64, 128, 1000), (100, 64, 512), (128, 32, 2048), (32, 16, 77)]  # :93-98
+# (T, d, V): tests/test_kernels.py:93-98, then the bf16 design's edges
+XENT_CASES = [(64, 128, 1000), (100, 64, 512), (128, 32, 2048), (32, 16, 77),
+              (129, 64, 255), (129, 128, 257), (64, 40, 1001)]
 XENT_PATH = (16384, 2048, 92544)  # (B*S, d_model, vocab)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 4096
 
@@ -129,6 +148,23 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 4096
 def _require(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a kernel from its mangled name, for the build report."""
+    import re
+
+    # walk the nested name's <length><identifier> parts: _ZN <parts> ...
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + m.end()
+        pos = start + int(m.group())
+        name = mangled[start:pos]
+        if name.endswith("_kernel"):
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+            return name + (f"<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
+                           if args else "")
+    return mangled
 
 
 def _gpu_line() -> str:
@@ -560,7 +596,7 @@ def flash_timing(fops, fref):
 
     B, Hq, Hkv, S, hd = FLASH_PATH
     q, k, v = _attn_inputs(B, Hq, Hkv, S, hd, torch.bfloat16, seed=0)
-    ms = _time_ms(lambda: fops._launch(q, k, v, True, 0), reps=10, inner=2)
+    ms = _time_ms(lambda: fops._launch(q, k, v, True, 0), reps=10, inner=5)
     plain_ms = _time_ms(lambda: fref.attention_ref(q, k, v), reps=3, inner=1)
     library_ms = _time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
@@ -577,19 +613,21 @@ def flash_timing(fops, fref):
 
 
 def xent_timing(xops, xref):
-    """Kernel, plain and bound times at the training shape, bf16."""
+    """Kernel, plain, cuBLAS-product and bound times at the training shape, bf16."""
     T, d, V = XENT_PATH
     g = torch.Generator("cuda").manual_seed(0)
     x = torch.randn(T, d, generator=g, device="cuda").to(torch.bfloat16)
     w = (torch.randn(d, V, generator=g, device="cuda") * d**-0.5).to(torch.bfloat16)
     labels = torch.randint(0, V, (T,), generator=g, device="cuda", dtype=torch.int32)
-    ms = _time_ms(lambda: xops._launch(x, w, labels), reps=3, inner=1)
+    ms = _time_ms(lambda: xops._launch(x, w, labels), reps=10, inner=2)
     plain_ms = _time_ms(lambda: xref.softmax_xent_ref(x, w, labels), reps=5, inner=1)
+    gemm_ms = _time_ms(lambda: x @ w, reps=10, inner=2)  # the GEMM part alone, as context
     # x, w, labels read once, the loss written once; 2 T d V for the product
     nbytes = T * d * 2 + d * V * 2 + T * 4 + T * 4
     flops = 2 * T * d * V
     bounds, bound_by = _bound(nbytes, flops)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bytes": nbytes,
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "gemm_ms": gemm_ms,
+            "bytes": nbytes,
             "flops": flops, "bytes_ms": bounds["bytes"], "flop_ms": bounds["operations"],
             "bound_ms": bounds[bound_by], "bound_by": bound_by,
             "shape": f"T={T} d={d} V={V} bf16"}
@@ -607,12 +645,13 @@ def train_lm(fops, xops):
 
     torch.cuda.reset_peak_memory_stats()
     fops.flash_attention.launches = 0
-    xops.fused_softmax_xent.launches = 0
+    xops.fused_softmax_xent.launches = xops.fused_softmax_xent.combine_launches = 0
     run = train.main(["--arch", DENSE_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
                       str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", "3e-4",
                       "--log-every", "1"])
     flash_launches = fops.flash_attention.launches
     xent_launches = xops.fused_softmax_xent.launches
+    combine_launches = xops.fused_softmax_xent.combine_launches
     peak = torch.cuda.max_memory_allocated()
     cfg = run.model.cfg
     _require(len(run.losses) == TRAIN_STEPS and all(np.isfinite(run.losses)),
@@ -621,6 +660,8 @@ def train_lm(fops, xops):
              f"flash_attention launched {flash_launches}x in {TRAIN_STEPS} steps")
     _require(xent_launches == TRAIN_STEPS,
              f"fused_xent launched {xent_launches}x in {TRAIN_STEPS} steps")
+    _require(combine_launches == TRAIN_STEPS,
+             f"fused_xent's combine launched {combine_launches}x in {TRAIN_STEPS} steps")
     step_s = statistics.median(run.step_s[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_params = sum(p.numel() for p in run.model.parameters())
@@ -640,15 +681,17 @@ def train_lm(fops, xops):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _require(bool(torch.isfinite(metrics["loss"])), "non-finite profiled loss")
-    summary = _device_summary(prof, wall, "flash_attention_", "fused_xent_")
-    seen = (summary["flash_attention_"]["profiler"], summary["fused_xent_"]["profiler"])
-    _require(seen == (2 * cfg.num_layers, 1), f"the profiler saw (flash, xent) launches {seen}")
+    summary = _device_summary(prof, wall, "flash_attention_", "fused_xent_", "xent_combine")
+    seen = tuple(summary[k]["profiler"] for k in ("flash_attention_", "fused_xent_",
+                                                  "xent_combine"))
+    _require(seen == (2 * cfg.num_layers, 1, 1),
+             f"the profiler saw (flash, xent, combine) launches {seen}")
     return {
         "params": n_params, "losses": run.losses, "step_s": run.step_s,
         "step_s_median": step_s, "tokens_per_s": tokens / step_s,
         "six_n_share": M.model_flops_per_token(cfg) * tokens / step_s / BF16_FLOPS_PER_S,
         "peak_gb": peak / 1e9, "flash_launches": flash_launches, "xent_launches": xent_launches,
-        "profiled": summary,
+        "combine_launches": combine_launches, "profiled": summary,
     }
 
 
@@ -694,7 +737,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ptxas_report
     from repro_torch.kernels.recurrent_scan import ops, ref
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
@@ -716,6 +759,11 @@ def main():
         libs = list(pool.map(build, sources))
     print(f"build: {', '.join(os.path.relpath(lib) for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    for source, lib in zip(sources, libs):
+        for k in ptxas_report(lib):
+            print(f"build report: {source} {_kernel_name(k['name'])}: {k['registers']} registers, "
+                  f"{k['static_smem']} B static shared memory, spills {k['spill_stores']} B "
+                  f"stored / {k['spill_loads']} B loaded (nvcc -Xptxas -v)")
 
     # ---- slice 1: rec-IPPO (linear core)
     worst = kernel_parity(ops, ref)
@@ -806,11 +854,14 @@ def main():
     xent_row = xent_timing(xops, xref)
     for name, r in (("flash_attention", flash_row), ("fused_xent", xent_row)):
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+        gemm = f", cuBLAS x @ w {r['gemm_ms']:.3f} ms" if "gemm_ms" in r else ""
         print(
-            f"kernel timing: {name} {r['shape']}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
-            f"ms, library {lib}, bound {r['bound_ms']:.3f} ms by {r['bound_by']} (bytes "
-            f"{r['bytes_ms']:.3f} ms for {r['bytes']} B; flop {r['flop_ms']:.3f} ms for "
-            f"{r['flops']} flop at 989 TFLOP/s) {tag}"
+            f"kernel timing: {name} {r['shape']}: {r['ms']:.3f} ms "
+            f"({r['flops'] / r['ms'] / 1e9:.0f} TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of the "
+            f"bound), plain {r['plain_ms']:.3f} ms, library {lib}{gemm}, bound "
+            f"{r['bound_ms']:.3f} ms by {r['bound_by']} (bytes {r['bytes_ms']:.3f} ms for "
+            f"{r['bytes']} B; flop {r['flop_ms']:.3f} ms for {r['flops']} flop at 989 TFLOP/s) "
+            f"{tag}"
         )
     print(f"slice 3 kernels: parity and timing in {time.perf_counter() - t0:.1f} s")
 
@@ -825,16 +876,18 @@ def main():
         f"share {lm_train['six_n_share']:.4f} of 989 TFLOP/s; peak {lm_train['peak_gb']:.2f} "
         f"GB; losses {[round(x, 4) for x in lm_train['losses']]}; flash_attention launches "
         f"{lm_train['flash_launches']} ({lm_train['flash_launches'] // TRAIN_STEPS} a step), "
-        f"fused_xent {lm_train['xent_launches']} {tag}"
+        f"fused_xent {lm_train['xent_launches']}, its combine {lm_train['combine_launches']} {tag}"
     )
     print(
         f"train (profiled step): wall {prof['wall_s']:.3f} s, device busy "
         f"{prof['device_busy_s']:.3f} s, idle share {prof['device_idle_share']:.4f}, "
         f"{prof['kernel_launches']} kernel launches; flash_attention "
-        f"{prof['flash_attention_']}, fused_xent {prof['fused_xent_']} {tag}"
+        f"{prof['flash_attention_']}, fused_xent {prof['fused_xent_']}, its combine "
+        f"{prof['xent_combine']} {tag}"
     )
     print("train (profiled step) top kernels: " + json.dumps(prof["top_kernels"]))
     lm_train_flash, lm_train_xent = lm_train["flash_launches"], lm_train["xent_launches"]
+    lm_train_combine = lm_train["combine_launches"]
     del lm_train
     torch.cuda.empty_cache()
     print(f"slice 3 training in {time.perf_counter() - t0:.1f} s")
@@ -903,16 +956,17 @@ def main():
         "source": "src/repro_torch/kernels/csrc/fused_xent.cu",
         "replaces": "src/repro/kernels/fused_xent/kernel.py:67",
         "launches": lm_train_xent,
+        "combine_launches": lm_train_combine,
         "max_abs_err": max(e["abs"] for c, e in xent_worst.items() if "float32" in c),
         "max_abs_err_bf16": max(e["abs"] for c, e in xent_worst.items() if "bfloat16" in c),
         **{key: xent_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                          "library_ms", "shape")},
+                                          "library_ms", "gemm_ms", "shape")},
         "gpu": gpu,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": 1,  # the run uses one card
+        "count": torch.cuda.device_count(),
     }}))
 
 

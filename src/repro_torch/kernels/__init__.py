@@ -19,6 +19,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -27,6 +28,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills of each kernel: see `ptxas_report`
 )
 
 
@@ -42,29 +44,73 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: a CUDA toolkit is needed to build kernels")
 
 
+def _headers(src: pathlib.Path) -> list[pathlib.Path]:
+    """The ``csrc`` headers ``src`` includes with quotes, directly or through another."""
+    found, todo = [], [src]
+    while todo:
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', todo.pop().read_text(), re.M):
+            header = CSRC / name
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return sorted(found)
+
+
+def library_path(source: str) -> pathlib.Path:
+    """Where `build` puts ``csrc/<source>``'s library.
+
+    The name carries a hash of the flags, the source and every header it
+    includes from ``csrc``, so an edit to any of them means a new build.
+    """
+    src = CSRC / source
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *_headers(src)]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
 def build(source: str) -> pathlib.Path:
     """Compile ``csrc/<source>`` into a shared library; return its path.
 
-    The library's name carries a hash of the source and flags, so an edited
-    source is rebuilt and an unchanged one is reused.  The compiler writes
-    to a temporary name that is renamed into place, so concurrent builds
-    never load a half-written file.
+    An unchanged source (with its headers and flags) is reused, see
+    `library_path`.  The compiler writes to a temporary name that is
+    renamed into place, so concurrent builds never load a half-written file.
     """
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
+    out = library_path(source)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {source}:\n{proc.stderr}"
         )
+    report(out).write_text(proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def report(library: pathlib.Path) -> pathlib.Path:
+    """The compiler's report (``-Xptxas -v``) kept beside a built ``library``."""
+    return library.with_name(library.stem + ".ptxas.txt")
+
+
+def ptxas_report(library: pathlib.Path) -> list[dict]:
+    """Registers, shared memory and spills of each kernel in ``library``'s report."""
+    kernels = []
+    for line in report(library).read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            kernels.append({"name": m.group(1)})
+        elif kernels and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                          line)):
+            kernels[-1].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif kernels and (m := re.search(r"Used (\d+) registers", line)):
+            kernels[-1]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernels[-1]["static_smem"] = int(smem.group(1)) if smem else 0
+    return kernels
 
 
 @functools.cache

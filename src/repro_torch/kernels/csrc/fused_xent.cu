@@ -6,12 +6,12 @@
 // the TPU form of the training loss repro.models.layers.chunked_softmax_xent).
 // It computes what that kernel computes, not its grid: the TPU walks (token
 // block, vocab block) with the vocab blocks in order on one core and the
-// online-logsumexp state in VMEM scratch.  Here one block owns one tile of
-// tokens and loops over the vocab tiles itself, keeping each row's running
-// max, sum and gold logit in registers (kernel.py:36-64).  The kernel masks
-// the token tail and the vocab tail, so it needs no padding and never shrinks
-// the vocab tile to a divisor of V (the JAX wrapper does, ops.py:34-37:
-// V = 92,544 = 2^7 * 3 * 241 would fall to 482-wide tiles).
+// online-logsumexp state in VMEM scratch.  Here a block owns one tile of
+// tokens and loops over vocab tiles itself, keeping each row's running max,
+// sum and gold logit in registers (kernel.py:36-64).  The kernel masks the
+// token tail and the vocab tail, so it never shrinks the vocab tile to a
+// divisor of V (the JAX wrapper does, ops.py:34-37: V = 92,544 = 2^7 * 3 *
+// 241 would fall to 482-wide tiles).
 //
 // Layout (row-major, contiguous): x (T, d) and w (d, V) in T (float or bf16);
 // labels (T,) int32; loss (T,) float32.  Each logit is a float32 sum of d
@@ -25,25 +25,41 @@
 // training shape (T = 16,384, d = 2048, V = 92,544), 6.28 ms at 989 TFLOP/s
 // on bf16 tensor cores; the bytes (x, w, labels read once, loss written
 // once: 446 MB) take 0.13 ms.  What the design does about the operations:
-//   * bf16 runs on the tensor cores (WMMA 16x16x16, float32 accumulators):
-//     64 x 128 logit tiles, four warps of 32 x 64, the x and w slabs staged
-//     32 deep in shared memory; the tile's logits go through shared memory
-//     to the fold, two threads a row.
+//   * bf16: a pipelined wgmma product with the online logsumexp as its
+//     epilogue (hopper.cuh).  A block is two consumer warpgroups of 64
+//     tokens and one producer warp; each warpgroup holds a 64 x 256 logit
+//     tile as float32 accumulators in registers.  The producer streams
+//     64-deep stages of x (128 tokens, K-major) and w (256 columns, read
+//     MN-major, transposed by the wgmma) through a four-stage ring with TMA,
+//     each stage behind a full and an empty mbarrier, so the copies run
+//     under the products and each warpgroup keeps one stage's wgmmas in
+//     flight while it releases the previous stage.  The fold reads the
+//     accumulators in registers: round to bf16, max, exp2, sum and the gold
+//     pick, each thread keeping (m, l, gold) for its two rows over its own
+//     columns, combined across the quad once at the end.
+//     The vocab is cut into splits of whole tiles (the wrapper picks how
+//     many, ops.py `vocab_splits`): block (split, token tile) writes its
+//     (m, l, gold) to a float32 scratch and `xent_combine_kernel` merges the
+//     splits.  The splits of one token tile run side by side, so the x rows
+//     the running blocks re-read for every vocab tile (a few MB) stay in L2;
+//     with one block per token tile they would be all of x (64 MB at the
+//     training shape), re-read from memory for each of the 362 vocab tiles.
+//     TMA needs 16-byte strides: the wrapper pads d and the row length of w
+//     to multiples of 8 where they are not (the training shape copies
+//     nothing); columns >= V never enter the loss.
 //   * float32 runs on the SIMT cores, which keeps the products exact in
 //     float32 (the tensor cores' TF32 would not): 64 x 64 tiles, each thread
 //     a 4 x 4 block of logits fed by two float4 shared-memory loads a step;
 //     67 TFLOP/s peak.
-// Neither pipelines its copies (cp.async or TMA) or uses wgmma: later work.
+
+#include "hopper.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
 namespace {
-
-namespace wmma = nvcuda::wmma;
 
 constexpr float kNegInf = -1e30f;
 
@@ -158,115 +174,180 @@ fused_xent_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// --------------------------------------------------------- bf16, tensor cores
+// ------------------------------------------- bf16, wgmma fed by a TMA ring
 
-constexpr int kTcBT = 64;          // tokens per block
-constexpr int kTcBV = 128;         // vocab columns per tile
-constexpr int kTcKC = 32;          // depth of a staged slab
-constexpr int kTcThreads = 128;    // 4 warps, each 32 tokens x 64 columns
-constexpr int kLdX = kTcKC + 8;    // bf16 row strides: multiples of 8, rows
-constexpr int kLdW = kTcBV + 8;    //   offset across banks
-constexpr int kLdZ = kTcBV + 4;    // float row stride of the logit tile
+constexpr int kWgGroups = 2;                     // consumer warpgroups, 64 tokens each
+constexpr int kWgBT = 64 * kWgGroups;            // tokens per block
+constexpr int kWgBV = 256;                       // vocab columns per tile
+constexpr int kWgBK = 64;                        // depth of a stage (one 128-byte row)
+constexpr int kWgStages = 4;
+constexpr int kWgThreads = 128 * kWgGroups + 32;  // + the producer warp
+constexpr int kWgChunkW = kWgBK * 64 * 2;         // one 64-column chunk of a w stage
+constexpr int kWgTileX = kWgBT * kWgBK * 2;
+constexpr int kWgStage = kWgTileX + (kWgBV / 64) * kWgChunkW;
+constexpr int kWgBytes = kWgStages * kWgStage + 1024;  // + the alignment slack
+constexpr float kLog2e = 1.4426950408889634f;
 
-__global__ void __launch_bounds__(kTcThreads)
-fused_xent_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ w,
-                       const int* __restrict__ labels, float* __restrict__ loss, int Tn,
-                       int d, int V, int vec) {
-  __shared__ __align__(32) __nv_bfloat16 sX[kTcBT * kLdX];  // x slab [token][k]
-  __shared__ __align__(32) __nv_bfloat16 sW[kTcKC * kLdW];  // w slab [k][column]
-  __shared__ __align__(32) float sZ[kTcBT * kLdZ];          // logit tile [token][column]
+// One block: tokens [t0, t0 + kWgBT) against the vocab tiles
+// [split * tiles_per_split, ...) of its split.  Writes the split's
+// (max, sum, gold) of each token to part[0 | 1 | 2][split][token].
+__global__ void __launch_bounds__(kWgThreads, 1)
+fused_xent_bf16_kernel(const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap w_map,
+                       const int* __restrict__ labels, float* __restrict__ part, int Tn, int d,
+                       int V, int tiles_per_split) {
+  extern __shared__ unsigned char wg_smem_raw[];
+  __shared__ uint64_t full[kWgStages], empty[kWgStages];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wy = warp / 2, wx = warp % 2;  // the warp's rows 32 wy.., columns 64 wx..
-  const int t0 = blockIdx.x * kTcBT;
-  const int row = tid / 2, half = tid % 2;  // the fold: one row, 64 columns a thread
-  const int lab = t0 + row < Tn ? labels[t0 + row] : -1;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
-  LseState st;
+  const int split = blockIdx.x, splits = gridDim.x;
+  const int t0 = blockIdx.y * kWgBT;
+  const int vt_begin = split * tiles_per_split;
+  const int vt_end = min(vt_begin + tiles_per_split, (V + kWgBV - 1) / kWgBV);
+  const int nk = (d + kWgBK - 1) / kWgBK;
 
-  for (int v0 = 0; v0 < V; v0 += kTcBV) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4 * kWgGroups);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-    for (int k0 = 0; k0 < d; k0 += kTcKC) {
-      __syncthreads();  // every warp is done with the previous slab
-      if (vec) {  // d and V multiples of 8, 16-byte aligned rows: 8 values a load
-        for (int i = tid; i < kTcBT * kTcKC / 8; i += kTcThreads) {
-          const int r = i / (kTcKC / 8), c = 8 * (i % (kTcKC / 8));
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (t0 + r < Tn && k0 + c < d)
-            v = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(t0 + r) * d + k0 + c);
-          *reinterpret_cast<uint4*>(sX + r * kLdX + c) = v;
+  if (warp == 4 * kWgGroups) {  // the producer warp: one lane issues every copy
+    if (lane == 0) {
+      int it = 0;
+      for (int vt = vt_begin; vt < vt_end; ++vt) {
+        const int v0 = vt * kWgBV;
+        const int chunks = min(kWgBV / 64, (V - v0 + 63) / 64);  // chunks with a live column
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kWgStages;
+          unsigned char* sx = smem + s * kWgStage;
+          hopper::mbar_wait(&empty[s], ((it / kWgStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], kWgTileX + chunks * kWgChunkW);
+          hopper::tma_load_2d(sx, &x_map, &full[s], kt * kWgBK, t0);
+          for (int c = 0; c < chunks; ++c)
+            hopper::tma_load_2d(sx + kWgTileX + c * kWgChunkW, &w_map, &full[s], v0 + 64 * c,
+                                kt * kWgBK);
         }
-        for (int i = tid; i < kTcKC * kTcBV / 8; i += kTcThreads) {
-          const int r = i / (kTcBV / 8), c = 8 * (i % (kTcBV / 8));
-          uint4 v = make_uint4(0, 0, 0, 0);
-          if (k0 + r < d && v0 + c < V)
-            v = *reinterpret_cast<const uint4*>(w + static_cast<size_t>(k0 + r) * V + v0 + c);
-          *reinterpret_cast<uint4*>(sW + r * kLdW + c) = v;
-        }
-      } else {
-        for (int i = tid; i < kTcBT * kTcKC; i += kTcThreads) {
-          const int r = i / kTcKC, c = i % kTcKC;
-          sX[r * kLdX + c] =
-              t0 + r < Tn && k0 + c < d ? x[static_cast<size_t>(t0 + r) * d + k0 + c] : zero;
-        }
-        for (int i = tid; i < kTcKC * kTcBV; i += kTcThreads) {
-          const int r = i / kTcBV, c = i % kTcBV;
-          sW[r * kLdW + c] =
-              k0 + r < d && v0 + c < V ? w[static_cast<size_t>(k0 + r) * V + v0 + c] : zero;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTcKC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[4];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], sX + (32 * wy + 16 * i) * kLdX + kk, kLdX);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(b[j], sW + kk * kLdW + 64 * wx + 16 * j, kLdW);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
       }
     }
+    return;
+  }
 
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(sZ + (32 * wy + 16 * i) * kLdZ + 64 * wx + 16 * j, acc[i][j],
-                                kLdZ, wmma::mem_row_major);
-    __syncthreads();
+  // a consumer warpgroup: tokens t0 + 64 wg .. + 63
+  const int wg = warp / 4;
+  const int row0 = t0 + 64 * wg + 16 * (warp % 4) + lane / 4;  // and row0 + 8
+  const int kc = 2 * (lane % 4);  // this thread's first column in each 8-column chunk
+  const int lab0 = row0 < Tn ? labels[row0] : -1;
+  const int lab1 = row0 + 8 < Tn ? labels[row0 + 8] : -1;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f, g0 = 0.0f, g1 = 0.0f;
 
-    // fold this thread's 64 logits, each rounded to bf16 as the loss rounds it
-    const float* z = sZ + row * kLdZ + 64 * half;
-    const int c0 = v0 + 64 * half;
-    const int n = min(64, V - c0);
-    if (n > 0) {
-      float mx = kNegInf;
-      for (int c = 0; c < n; ++c) {
-        const float zc = __bfloat162float(__float2bfloat16(z[c]));
-        mx = fmaxf(mx, zc);
-        if (c0 + c == lab) st.gold += zc;
+  int it = 0;
+  for (int vt = vt_begin; vt < vt_end; ++vt) {
+    const int v0 = vt * kWgBV;
+    float z[kWgBV / 2];  // the 64 x kWgBV logit tile of the warpgroup
+    int prev = 0;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kWgStages;
+      const uint32_t x_base = hopper::smem_addr(smem + s * kWgStage) + 64 * wg * 128;
+      const uint32_t w_base = hopper::smem_addr(smem + s * kWgStage + kWgTileX);
+      hopper::mbar_wait(&full[s], (it / kWgStages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)  // x K-major; w MN-major, read transposed
+        hopper::wgmma_ss<1>(z, hopper::desc(x_base + kk * 32, 16, 1024),
+                            hopper::desc(w_base + kk * 16 * 128, kWgChunkW, 1024),
+                            kt > 0 || kk > 0, hopper::Shape<kWgBV>{});
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+      prev = s;
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(z);
+    if (lane == 0) hopper::mbar_arrive(&empty[prev]);
+
+    // round each logit to bf16 (the loss's numerics); columns >= V are -inf
+    float mx0 = kNegInf, mx1 = kNegInf;
+    const bool tail = v0 + kWgBV > V;
+#pragma unroll
+    for (int j = 0; j < kWgBV / 2; j += 2) {
+      float2 r = hopper::unpack_bf16(hopper::pack_bf16(z[j], z[j + 1]));
+      if (tail) {
+        const int col = v0 + 8 * (j / 4) + kc;
+        if (col >= V) r.x = -INFINITY;
+        if (col + 1 >= V) r.y = -INFINITY;
       }
-      const float m_new = fmaxf(st.m, mx);
-      float sum = 0.0f;
-      for (int c = 0; c < n; ++c) sum += expf(__bfloat162float(__float2bfloat16(z[c])) - m_new);
-      st.l = st.l * expf(st.m - m_new) + sum;
-      st.m = m_new;
+      z[j] = r.x;
+      z[j + 1] = r.y;
+      if (j & 2) mx1 = fmaxf(mx1, fmaxf(r.x, r.y));
+      else mx0 = fmaxf(mx0, fmaxf(r.x, r.y));
+    }
+    // the gold logit, in the one tile (and thread) that holds it
+    if (lab0 >= v0 && lab0 < v0 + kWgBV) {
+#pragma unroll
+      for (int j = 0; j < kWgBV / 2; ++j)
+        if (!(j & 2) && v0 + 8 * (j / 4) + kc + (j & 1) == lab0) g0 = z[j];
+    }
+    if (lab1 >= v0 && lab1 < v0 + kWgBV) {
+#pragma unroll
+      for (int j = 0; j < kWgBV / 2; ++j)
+        if ((j & 2) && v0 + 8 * (j / 4) + kc + (j & 1) == lab1) g1 = z[j];
+    }
+    // fold into this thread's running (max, sum) of each row
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float o0 = mn0 * kLog2e, o1 = mn1 * kLog2e;
+    float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kWgBV / 2; ++j) {
+      if (j & 2) s1 += exp2f(fmaf(z[j], kLog2e, -o1));
+      else s0 += exp2f(fmaf(z[j], kLog2e, -o0));
+    }
+    l0 = l0 * exp2f((m0 - mn0) * kLog2e) + s0;
+    l1 = l1 * exp2f((m1 - mn1) * kLog2e) + s1;
+    m0 = mn0;
+    m1 = mn1;
+  }
+
+  // combine the quad's states of each row; lane 0 of the quad writes them
+  const float ms[2] = {m0, m1}, ls[2] = {l0, l1}, gs[2] = {g0, g1};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float m = ms[r];
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    float l = ls[r] * expf(ms[r] - m), g = gs[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    g += __shfl_xor_sync(0xffffffffu, g, 1);
+    g += __shfl_xor_sync(0xffffffffu, g, 2);
+    const int row = row0 + 8 * r;
+    if (lane % 4 == 0 && row < Tn) {
+      part[static_cast<size_t>(split) * Tn + row] = m;
+      part[static_cast<size_t>(splits + split) * Tn + row] = l;
+      part[static_cast<size_t>(2 * splits + split) * Tn + row] = g;
     }
   }
-  finish_row(st, 2, half == 0 && t0 + row < Tn, loss + t0 + row);
+}
+
+// loss = m + log(max(l, 1e-30)) - gold over the splits' (m, l, gold)
+__global__ void xent_combine_kernel(const float* __restrict__ part, float* __restrict__ loss,
+                                    int Tn, int splits) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= Tn) return;
+  float m = kNegInf;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, part[static_cast<size_t>(s) * Tn + t]);
+  float l = 0.0f, gold = 0.0f;
+  for (int s = 0; s < splits; ++s) {
+    l += part[static_cast<size_t>(splits + s) * Tn + t] *
+         expf(part[static_cast<size_t>(s) * Tn + t] - m);
+    gold += part[static_cast<size_t>(2 * splits + s) * Tn + t];
+  }
+  loss[t] = m + logf(fmaxf(l, 1e-30f)) - gold;
 }
 
 }  // namespace
@@ -280,15 +361,40 @@ extern "C" int fused_xent_f32(const float* x, const float* w, const int* labels,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (Tn, d) and w (d, ldw) with d and ldw multiples of 8 and both on 16
+// bytes (TMA's strides); columns >= V of w are never read into the loss.
+// part: float32 (3, splits, Tn) scratch; each split covers tiles_per_split
+// vocab tiles of kWgBV columns.
 extern "C" int fused_xent_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                               const int* labels, float* loss, int Tn, int d, int V,
-                               void* stream) {
+                               const int* labels, float* part, int Tn, int d, int V, int ldw,
+                               int splits, int tiles_per_split, void* stream) {
   if (Tn == 0) return static_cast<int>(cudaGetLastError());
-  if (d <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = d % 8 == 0 && V % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  fused_xent_bf16_kernel<<<(Tn + kTcBT - 1) / kTcBT, kTcThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(x, w, labels, loss, Tn, d, V,
-                                                                vec);
+  if (d <= 0 || V <= 0 || ldw < V || d % 8 || ldw % 8 || splits <= 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x_map, w_map;
+  const uint64_t x_dims[2] = {static_cast<uint64_t>(d), static_cast<uint64_t>(Tn)};
+  const uint64_t x_strides[1] = {static_cast<uint64_t>(d) * 2};
+  const uint32_t x_box[2] = {kWgBK, kWgBT};
+  const uint64_t w_dims[2] = {static_cast<uint64_t>(ldw), static_cast<uint64_t>(d)};
+  const uint64_t w_strides[1] = {static_cast<uint64_t>(ldw) * 2};
+  const uint32_t w_box[2] = {64, kWgBK};
+  if (!hopper::make_map(&x_map, x, 2, x_dims, x_strides, x_box) ||
+      !hopper::make_map(&w_map, w, 2, w_dims, w_strides, w_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(fused_xent_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kWgBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(splits, (Tn + kWgBT - 1) / kWgBT);  // the splits of a token tile together
+  fused_xent_bf16_kernel<<<grid, kWgThreads, kWgBytes, static_cast<cudaStream_t>(stream)>>>(
+      x_map, w_map, labels, part, Tn, d, V, tiles_per_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int fused_xent_combine(const float* part, float* loss, int Tn, int splits,
+                                  void* stream) {
+  if (Tn == 0) return static_cast<int>(cudaGetLastError());
+  xent_combine_kernel<<<(Tn + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      part, loss, Tn, splits);
   return static_cast<int>(cudaGetLastError());
 }

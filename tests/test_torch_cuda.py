@@ -15,9 +15,12 @@ versions by each one's `ref.kernel_errors` (flash: 2e-5 in float32; in
 bfloat16 2**-6 of the attention of |v| an element and 1e-2 of a query
 row's norm; xent: 1e-4 in float32; in bfloat16, where both round the
 logits to bfloat16, 2e-2 a token and 1e-4 a token on average),
+at the wgmma designs' tile edges too (S = 127, 129, 200 around 128-row
+query tiles, a window that starts inside a kv tile; T = 129, V = 255 and
+257 around 256-wide vocab tiles, d and V that are not multiples of 8),
 and a smoke-sized InternLM2 train step on the GPU must launch the flash
 kernel twice a layer (remat runs each layer's forward again) and the
-xent kernel once.
+xent kernel and its combine once.
 """
 import pytest
 
@@ -168,6 +171,14 @@ def test_smoke_prefill_launches_the_scan_once_a_layer(cuda):
     (1, 6, 3, 160, 80, True, 64),    # head_dim 80
     (1, 4, 4, 77, 32, False, 0),     # non-causal, ragged: keys >= S masked
     (1, 2, 1, 300, 128, False, 40),  # non-causal window
+    # the wgmma design's edges: 128-row query tiles, 128-key tiles
+    (1, 4, 2, 127, 128, True, 0),
+    (1, 4, 2, 127, 128, False, 0),
+    (1, 4, 2, 129, 128, True, 0),
+    (1, 4, 2, 129, 64, False, 0),
+    (1, 4, 2, 200, 128, False, 0),
+    (1, 2, 1, 300, 128, True, 70),   # a window that starts inside a kv tile
+    (1, 2, 2, 384, 64, True, 200),
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, B, Hq, Hkv, S, hd, causal, window,
                                                       dtype):
@@ -185,18 +196,35 @@ def test_flash_attention_kernel_matches_plain_version(cuda, B, Hq, Hkv, S, hd, c
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("T,d,V", [(64, 128, 1000), (100, 64, 512), (32, 16, 77), (130, 96, 70)])
+@pytest.mark.parametrize("T,d,V", [(64, 128, 1000), (100, 64, 512), (32, 16, 77), (130, 96, 70),
+                                   # the wgmma design's edges: 128-token blocks, 256-wide
+                                   # vocab tiles, d and V padded to multiples of 8
+                                   (129, 64, 255), (129, 128, 257), (64, 40, 1001)])
 def test_fused_xent_kernel_matches_plain_version(cuda, T, d, V, dtype):
     g = torch.Generator().manual_seed(T)
     x = torch.randn(T, d, generator=g).to(cuda, getattr(torch, dtype))
     w = (torch.randn(d, V, generator=g) * 0.05).to(cuda, getattr(torch, dtype))
     labels = torch.randint(0, V, (T,), generator=g).to(cuda)
-    before = fused_softmax_xent.launches
+    before = fused_softmax_xent.launches, fused_softmax_xent.combine_launches
     loss = fused_softmax_xent(x, w, labels)
     torch.cuda.synchronize()
-    assert fused_softmax_xent.launches == before + 1
+    # bf16 runs the product-and-fold kernel over vocab splits, then their combine
+    combines = int(dtype == "bfloat16")
+    assert (fused_softmax_xent.launches, fused_softmax_xent.combine_launches) == (
+        before[0] + 1, before[1] + combines)
     elem, total, _ = xent_ref.kernel_errors(loss, x, w, labels)
     assert elem <= 1 and total <= 1, (elem, total)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_xent_empty_batch_launches_nothing(cuda, dtype):
+    x = torch.zeros(0, 16, device=cuda, dtype=getattr(torch, dtype))
+    w = torch.zeros(16, 77, device=cuda, dtype=getattr(torch, dtype))
+    before = fused_softmax_xent.launches, fused_softmax_xent.combine_launches
+    loss = fused_softmax_xent(x, w, torch.zeros(0, dtype=torch.int64, device=cuda))
+    assert loss.shape == (0,) and loss.dtype == torch.float32
+    assert (fused_softmax_xent.launches, fused_softmax_xent.combine_launches) == before
 
 
 @pytest.mark.cuda
@@ -223,7 +251,9 @@ def test_smoke_train_step_goes_through_both_kernels(cuda):
     state = opt.init(model.tree())
     toks = torch.randint(0, cfg.vocab, (2, 33), device=cuda)
     flash_attention.launches = fused_softmax_xent.launches = 0
+    fused_softmax_xent.combine_launches = 0
     model, state, metrics = step(model, state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
     assert flash_attention.launches == 2 * cfg.num_layers
     assert fused_softmax_xent.launches == 1
+    assert fused_softmax_xent.combine_launches == int(cfg.dtype == "bfloat16")
     assert bool(torch.isfinite(metrics["loss"]))

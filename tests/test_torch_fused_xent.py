@@ -11,7 +11,11 @@ bfloat16, where both packages round each logit to bfloat16 before the
 float32 softmax, the loss matches the JAX loss at 2e-2.  The check that
 holds the kernel against the plain version on the card
 (`ref.kernel_errors`) passes one flipped logit rounding and fails a vocab
-tile left out of the logsumexp.
+tile left out of the logsumexp.  The bf16 kernel's operand helpers are
+pinned here too: `tma_operands` pads d and W's rows to multiples of 8
+with zeros (copying nothing when they are already) and the plain loss over
+the padded operands' first V columns is the unpadded one; `vocab_splits`
+covers every vocab tile with runs of whole tiles, none empty.
 """
 import numpy as np
 import pytest
@@ -26,6 +30,7 @@ from repro.kernels.fused_xent.ref import softmax_xent_ref as jax_ref  # noqa: E4
 from repro.models.layers import chunked_softmax_xent as jax_chunked  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels.fused_xent import fused_softmax_xent, softmax_xent_ref  # noqa: E402
+from repro_torch.kernels.fused_xent.ops import VOCAB_TILE, tma_operands, vocab_splits  # noqa: E402
 from repro_torch.kernels.fused_xent.ref import kernel_errors  # noqa: E402
 from repro_torch.models.layers import chunked_softmax_xent  # noqa: E402
 
@@ -145,3 +150,45 @@ def test_kernel_check_passes_bf16_rounding_and_fails_faults(fault, agrees):
         got[i] -= float(gold[i].bfloat16().float().abs().log2().floor().exp2()) / 128
     elem, total, _ = kernel_errors(got, x, w, labels)
     assert (elem <= 1 and total <= 1) == agrees, (elem, total)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,V", [(32, 16, 77), (130, 96, 70), (129, 13, 255), (40, 64, 257)])
+def test_tma_operands_pad_with_zeros_and_keep_the_loss(T, d, V, dtype):
+    g = torch.Generator().manual_seed(T + d + V)
+    x = torch.randn(T, d, generator=g).to(dtype)
+    w = (torch.randn(d, V, generator=g) * d**-0.5).to(dtype)
+    labels = torch.randint(0, V, (T,), generator=g)
+    xp, wp = tma_operands(x, w)
+    d8, v8 = -(-d // 8) * 8, -(-V // 8) * 8
+    assert xp.shape == (T, d8) and wp.shape == (d8, v8)
+    assert xp.data_ptr() % 16 == 0 and wp.data_ptr() % 16 == 0
+    assert torch.equal(xp[:, :d], x) and torch.equal(wp[:d, :V], w)
+    assert not xp[:, d:].any() and not wp[d:].any() and not wp[:, V:].any()
+    # the kernel reads only columns < V: the loss over them is the unpadded one
+    got = softmax_xent_ref(xp, wp[:, :V], labels)
+    elem, total, _ = kernel_errors(got, x, w, labels)
+    assert elem <= 1 and total <= 1, (elem, total)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, softmax_xent_ref(x, w, labels), atol=1e-5, rtol=1e-5)
+
+
+def test_tma_operands_copy_nothing_at_the_training_widths():
+    x, w = torch.zeros(24, 2048, dtype=torch.bfloat16), torch.zeros(2048, 92544 // 16,
+                                                                    dtype=torch.bfloat16)
+    xp, wp = tma_operands(x, w)
+    assert xp.data_ptr() == x.data_ptr() and wp.data_ptr() == w.data_ptr()
+    # an unaligned start is copied, though the widths need no padding
+    xs = torch.zeros(24 * 2048 + 1, dtype=torch.bfloat16)[1:].view(24, 2048)
+    xq, _ = tma_operands(xs, w)
+    assert xq.data_ptr() % 16 == 0 and xq.data_ptr() != xs.data_ptr()
+
+
+@pytest.mark.parametrize("T,V,sms", [(16384, 92544, 132), (129, 257, 132), (32, 77, 132),
+                                     (100, 512, 132), (300, 5000, 132), (16384, 92544, 114)])
+def test_vocab_splits_cover_every_tile_once(T, V, sms):
+    splits, per = vocab_splits(T, V, sms)
+    n_vt = -(-V // VOCAB_TILE)
+    assert 1 <= splits <= n_vt and (splits - 1) * per < n_vt <= splits * per
+    if (T, V, sms) == (16384, 92544, 132):  # the training shape: 9 splits of 41 tiles
+        assert (splits, per) == (9, 41)
