@@ -14,10 +14,16 @@ only, never JAX, and exits non-zero on the first phase that fails:
 rec-IPPO (linear core), the first slice:
 
 2. kernel parity: recurrent_scan against its plain PyTorch versions on the
-   card, forward at 1e-5 and the gradients da/db/dh0 at 1e-4, at the
-   training path's shapes (T=128, H=64, B=64 and 256) and a ragged one,
-   under four reset patterns;
-3. kernel timing at the path's shapes (CUDA events, warm, median);
+   card (the sequential ones and `chunked_scan_ref`, the chunked design's
+   algebra), forward at 1e-5 and the gradients da/db/dh0 at 1e-4, at the
+   training path's shapes (T=128, H=64, B=64 and 256), a ragged one and
+   the chunked design's edges (T = 15, 17, 129 around 16-step chunks and
+   128-step windows, D = 35), under four reset patterns and resets on the
+   first and the last step of every chunk, in both directions;
+3. kernel timing at the path's shapes (CUDA events, warm, median): calls
+   launched eagerly (``ms``, which the host's cost of a launch bounds from
+   below), and the device time of the same calls replayed from a CUDA
+   graph (``device_ms``); each with the bound and its share of it;
 4. train: rec-IPPO with the linear core on matrix_game at PPOConfig's
    defaults, 256 envs for 256 iterations (2 PPO updates), then a greedy
    evaluation of 32 episodes; the kernel's launch count over that run must
@@ -29,10 +35,13 @@ Falcon-Mamba-7B greedy serving, the second slice:
 
 6. kernel parity: selective_scan against its plain version at the
    prefill shape (4, 2048, 8192, 16), the engine's admission shape
-   (1, 64, 8192, 16) and a ragged one (3, 37, 200, 16); float32 inputs at
-   1e-4, and bfloat16 x/B/C (what prefill passes) with the float32 state
-   at 1e-4 and y at 2e-2;
-7. kernel timing at the two path shapes;
+   (1, 64, 8192, 16), a ragged one (3, 37, 200, 16) and the staged
+   design's edges (S = 1, 15, 17 around its 16-step stage, di = 130 and
+   200, N = 4 and 8 with an odd b * S); float32 inputs at 1e-4, and
+   bfloat16 x/B/C (what prefill passes) with the float32 state at 1e-4
+   and y at 2e-2;
+7. kernel timing at the two path shapes, both rulers as in 3, with the
+   bound and their shares of it;
 8. launcher: the published config (64 layers, bf16, random weights from a
    seed) serves a batch of 4 prompts of 2048 tokens for 32 tokens; the
    prefill must launch the scan exactly once a layer;
@@ -100,13 +109,19 @@ GRAD_TOL = 1e-4
 SLICE_TOL = 1e-4  # full update on the card vs the CPU: 16 Adam steps, other sum orders
 PATH_SHAPES = [(128, 64, 64), (128, 256, 64)]  # (T, B, H): minibatch and bootstrap unrolls
 RAGGED = (33, 5, 7)  # D = 35: not a multiple of 32 (a warp) or of the block
-PATTERNS = ["none", "all", "mid_window", "random"]
+# the chunked design's edges: T around its 16-step chunks and 128-step windows
+SCAN_EDGE_SHAPES = [(15, 5, 7), (17, 5, 7), (129, 5, 7)]
+PATTERNS = ["none", "all", "mid_window", "random", "chunk_first", "chunk_last"]
 
 ARCH = "falcon-mamba-7b"
 SCAN_TOL = 1e-4  # docs/KERNELS.md's selective-scan pin: float32 y, and the float32 state
 SCAN_BF16_Y_TOL = 2e-2  # y rounded to bf16: one bf16 step is 2**-8 relative
 SCAN_PATH_SHAPES = [(4, 2048, 8192, 16), (1, 64, 8192, 16)]  # (b, S, di, N): prefill, admission
 SCAN_RAGGED = (3, 37, 200, 16)  # S not a chunk multiple, di not a block multiple
+# the staged design's edges: S = 1 and around its 16-step stage, di not a
+# multiple of a block's lanes, N = 4 and 8 with an odd b * S
+SCAN_EDGES = [(1, 1, 200, 16), (3, 15, 130, 16), (3, 17, 200, 16), (3, 17, 130, 8),
+              (1, 15, 200, 8), (3, 15, 200, 4), (1, 17, 130, 4)]
 LM_TOL = 1e-4  # 2 layers at full width in float32: other sum orders on the card
 
 DENSE_ARCH = "internlm2-1.8b"
@@ -160,10 +175,26 @@ def _kernel_name(mangled: str) -> str:
         start = pos + m.end()
         pos = start + int(m.group())
         name = mangled[start:pos]
-        if name.endswith("_kernel"):
-            args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
-            return name + (f"<{', '.join(re.findall(r'Li(\d+)E', args.group(1)))}>"
-                           if args else "")
+        if not name.endswith("_kernel"):
+            continue
+        if not mangled.startswith("I", pos):
+            return name
+        # template arguments: int and bool literals, float, named types
+        args, pos = [], pos + 1
+        while not mangled.startswith("E", pos):
+            if m := re.match(r"L([ib])(\d+)E", mangled[pos:]):
+                kind, value = m.groups()
+                args.append(value if kind == "i" else ("false", "true")[int(value)])
+                pos += m.end()
+            elif m := re.match(r"\d+", mangled[pos:]):
+                pos += m.end() + int(m.group())
+                args.append(mangled[pos - int(m.group()):pos])
+            elif mangled.startswith("f", pos):
+                args.append("float")
+                pos += 1
+            else:
+                return name
+        return f"{name}<{', '.join(args)}>"
     return mangled
 
 
@@ -175,17 +206,21 @@ def _gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _inputs(T, B, H, pattern, seed):
+def _inputs(T, B, H, pattern, seed, chunk=16):
     g = torch.Generator().manual_seed(seed)
     a = torch.sigmoid(torch.randn(T, B, H, generator=g))
     b = torch.randn(T, B, H, generator=g) * 0.1
     h0 = torch.randn(B, H, generator=g)
+    at = {"mid_window": T // 2, "chunk_first": 0, "chunk_last": chunk - 1}
     reset = {
         "none": None,
         "all": torch.ones(T, B, dtype=torch.bool),
-        "mid_window": (torch.arange(T) == T // 2)[:, None].expand(T, B).contiguous(),
         "random": torch.rand(T, B, generator=g) < 0.3,
-    }[pattern]
+    }.get(pattern)
+    if pattern in at:  # one reset row, or one on that step of every chunk
+        rows = (torch.arange(T) == at[pattern]) if pattern == "mid_window" else (
+            torch.arange(T) % chunk == at[pattern])
+        reset = rows[:, None].expand(T, B).contiguous()
     dev = torch.device("cuda")
     return a.to(dev), b.to(dev), h0.to(dev), None if reset is None else reset.to(dev)
 
@@ -200,17 +235,18 @@ def _within(x, y, tol):
 
 def kernel_parity(ops, ref):
     """Forward, adjoint and gradients of the op against the plain versions."""
-    worst = {"forward": 0.0, "reverse": 0.0, "grad": 0.0}
-    for T, B, H in PATH_SHAPES + [RAGGED]:
+    worst = {"forward": 0.0, "reverse": 0.0, "chunked": 0.0, "grad": 0.0}
+    for T, B, H in PATH_SHAPES + [RAGGED] + SCAN_EDGE_SHAPES:
         for i, pattern in enumerate(PATTERNS):
-            a, b, h0, reset = _inputs(T, B, H, pattern, seed=i)
+            a, b, h0, reset = _inputs(T, B, H, pattern, seed=i, chunk=ops.KERNEL_CHUNK)
             out = ops.linear_recurrent_scan(a, b, h0, reset)
             want = ref.linear_recurrence_ref(a, b, h0, reset)
             rev = ops._scan(a, b, reset, None, reverse=True)
-            flat_r = None if reset is None else reset.reshape(T, B)
-            rev_want = ref.scan_ref(
-                a.reshape(T, -1), b.reshape(T, -1), flat_r, None, reverse=True
-            ).reshape(T, B, H)
+            flat = (a.reshape(T, -1), b.reshape(T, -1),
+                    None if reset is None else reset.reshape(T, B))
+            rev_want = ref.scan_ref(*flat, None, reverse=True).reshape(T, B, H)
+            chunked = [ref.chunked_scan_ref(*flat, h, ops.KERNEL_CHUNK, reverse=r).reshape(T, B, H)
+                       for h, r in ((h0.reshape(-1), False), (None, True))]
             g = torch.randn(T, B, H, generator=torch.Generator().manual_seed(9)).cuda()
             leaves = [x.clone().requires_grad_(True) for x in (a, b, h0)]
             grads = torch.autograd.grad(
@@ -224,6 +260,9 @@ def kernel_parity(ops, ref):
             case = f"T={T} B={B} H={H} reset={pattern}"
             _require(_within(out, want, FWD_TOL), f"forward differs: {case}")
             _require(_within(rev, rev_want, FWD_TOL), f"reverse scan differs: {case}")
+            for x, y, direction in zip((out, rev), chunked, ("forward", "reverse")):
+                _require(_within(x, y, FWD_TOL), f"{direction} differs from chunked_scan_ref: {case}")
+                worst["chunked"] = max(worst["chunked"], _err(x, y))
             for name, x, y in zip(("da", "db", "dh0"), grads, grads_ref):
                 _require(_within(x, y, GRAD_TOL), f"{name} differs: {case}")
                 worst["grad"] = max(worst["grad"], _err(x, y))
@@ -248,8 +287,38 @@ def _time_ms(fn, reps=25, inner=10):
     return statistics.median(times)
 
 
+def _device_ms(fn, inner=20, reps=10):
+    """Median device time of one ``fn()`` over ``reps`` replays of a graph of ``inner`` calls.
+
+    Unlike `_time_ms`, this leaves out the host's cost of a launch (ctypes
+    and the op wrapper), which is more than a short kernel's whole work.
+    """
+    fn()  # first call: build, allocator, lazy loading; never captured
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
 def kernel_timing(ops, ref):
-    """Kernel, plain-version and bound times at the path's shapes."""
+    """Kernel, plain-version and bound times at the path's shapes.
+
+    ``ms`` times calls launched eagerly (`_time_ms`), which the host's cost
+    of a launch bounds from below; ``device_ms`` the same calls replayed
+    from a CUDA graph (`_device_ms`).  Each has its share of the bound.
+    """
     rows = []
     for T, B, H in PATH_SHAPES:
         a, b, h0, reset = _inputs(T, B, H, "random", seed=0)
@@ -263,6 +332,7 @@ def kernel_timing(ops, ref):
             rev = direction == "reverse"
             h = None if rev else flat[3]
             ms = _time_ms(lambda: ops._launch(*flat[:3], h, rev))
+            dev_ms = _device_ms(lambda: ops._launch(*flat[:3], h, rev))
             plain_ms = _time_ms(lambda: ref.scan_ref(*flat[:3], h, reverse=rev), reps=20, inner=1)
             bytes_moved = nbytes - (D * 4 if rev else 0)
             bounds = {
@@ -272,8 +342,9 @@ def kernel_timing(ops, ref):
             bound_by = max(bounds, key=bounds.get)
             rows.append({
                 "T": T, "B": B, "H": H, "direction": direction, "ms": ms,
-                "plain_ms": plain_ms, "bytes": bytes_moved, "flops": flops,
+                "device_ms": dev_ms, "plain_ms": plain_ms, "bytes": bytes_moved, "flops": flops,
                 "bound_ms": bounds[bound_by], "bound_by": bound_by,
+                "bound_share": bounds[bound_by] / ms, "device_bound_share": bounds[bound_by] / dev_ms,
             })
     return rows
 
@@ -374,7 +445,7 @@ def _scan_inputs(b, S, di, N, dtype, seed):
 def scan_parity(sops, sref):
     """selective_scan against its plain version, float32 and bf16 inputs."""
     worst = {}
-    for b, S, di, N in SCAN_PATH_SHAPES + [SCAN_RAGGED]:
+    for b, S, di, N in SCAN_PATH_SHAPES + [SCAN_RAGGED] + SCAN_EDGES:
         for dtype in (torch.float32, torch.bfloat16):
             t = _scan_inputs(b, S, di, N, dtype, seed=b + S)
             y, h = sops.selective_scan(**t)
@@ -390,11 +461,15 @@ def scan_parity(sops, sref):
 
 
 def scan_timing(sops, sref):
-    """Kernel, plain-version and bound times at the path's shapes, bf16 x/B/C."""
+    """Kernel, plain-version and bound times at the path's shapes, bf16 x/B/C.
+
+    ``ms`` and ``device_ms`` as in `kernel_timing`.
+    """
     rows = []
     for b, S, di, N in SCAN_PATH_SHAPES:
         t = _scan_inputs(b, S, di, N, torch.bfloat16, seed=0)
         ms = _time_ms(lambda: sops._launch(**t))
+        dev_ms = _device_ms(lambda: sops._launch(**t), inner=5)
         plain_ms = _time_ms(lambda: sref.selective_scan_ref(**t), reps=3, inner=1)
         # each input read once, each output written once: x, y (b,S,di) bf16,
         # delta (b,S,di) f32, B, C (b,S,N) bf16, A (di,N) f32, D (di,) f32,
@@ -410,10 +485,11 @@ def scan_timing(sops, sref):
         bound_by = max(bounds, key=bounds.get)
         rows.append({
             "b": b, "S": S, "di": di, "N": N, "dtype": "bfloat16", "ms": ms,
-            "plain_ms": plain_ms, "bytes": nbytes, "exps": exps, "flops": flops,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bytes": nbytes, "exps": exps, "flops": flops,
             "bytes_ms": bounds["bytes"], "exp_ms": exps / SFU_EXP_PER_S * 1e3,
             "flop_ms": flops / F32_FLOPS_PER_S * 1e3,
             "bound_ms": bounds[bound_by], "bound_by": bound_by,
+            "bound_share": bounds[bound_by] / ms, "device_bound_share": bounds[bound_by] / dev_ms,
         })
     return rows
 
@@ -769,17 +845,20 @@ def main():
     worst = kernel_parity(ops, ref)
     print(
         f"kernel parity: max abs err forward {worst['forward']:.3e} (tol {FWD_TOL}), "
-        f"reverse {worst['reverse']:.3e} (tol {FWD_TOL}), grads {worst['grad']:.3e} "
-        f"(tol {GRAD_TOL}) over shapes {PATH_SHAPES + [RAGGED]} x resets {PATTERNS}"
+        f"reverse {worst['reverse']:.3e} (tol {FWD_TOL}), against chunked_scan_ref "
+        f"{worst['chunked']:.3e} (tol {FWD_TOL}), grads {worst['grad']:.3e} (tol {GRAD_TOL}) "
+        f"over shapes {PATH_SHAPES + [RAGGED] + SCAN_EDGE_SHAPES} x resets {PATTERNS}"
     )
 
     rows = kernel_timing(ops, ref)
     for r in rows:
         print(
             f"kernel timing: recurrent_scan {r['direction']} T={r['T']} B={r['B']} H={r['H']}: "
-            f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.1f} us, "
+            f"{r['ms'] * 1e3:.2f} us a call launched eagerly ({r['device_ms'] * 1e3:.2f} us on "
+            f"the device), plain {r['plain_ms'] * 1e3:.1f} us, "
             f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} ({r['bytes']} B, "
-            f"{r['flops']} flop) {tag}"
+            f"{r['flops']} flop), {r['bound_share']:.3f} of the bound ({r['device_bound_share']:.3f} "
+            f"on the device) {tag}"
         )
 
     system, state, run = train_and_evaluate(ops)
@@ -806,10 +885,12 @@ def main():
     for r in scan_rows:
         print(
             f"kernel timing: selective_scan b={r['b']} S={r['S']} di={r['di']} N={r['N']} "
-            f"bf16: {r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.1f} us, bound "
+            f"bf16: {r['ms'] * 1e3:.2f} us a call launched eagerly ({r['device_ms'] * 1e3:.2f} us "
+            f"on the device), plain {r['plain_ms'] * 1e3:.1f} us, bound "
             f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} (bytes {r['bytes_ms'] * 1e3:.2f} "
             f"us for {r['bytes']} B; exp {r['exp_ms'] * 1e3:.2f} us for {r['exps']} exp; "
-            f"flop {r['flop_ms'] * 1e3:.2f} us) {tag}"
+            f"flop {r['flop_ms'] * 1e3:.2f} us), {r['bound_share']:.3f} of the bound "
+            f"({r['device_bound_share']:.3f} on the device) {tag}"
         )
 
     model, launcher = serve_launcher(sops)
@@ -911,10 +992,13 @@ def main():
         "launches": run["launches"],
         "max_abs_err": max(worst.values()),
         "ms": main_row["ms"],
+        "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "design": "chunked time-parallel scan: a block is 32 d x 8 chunks of 16 steps, "
+                  "carries combined in shared memory",
         "shape": "T=128 B=64 H=64 forward (the minibatch unroll)",
         "by_shape": rows,
         "gpu": gpu,
@@ -930,10 +1014,14 @@ def main():
                              "h_final": max(e["h_final"] for c, e in scan_worst.items()
                                             if "bfloat16" in c)},
         "ms": scan_row["ms"],
+        "device_ms": scan_row["device_ms"],
         "plain_ms": scan_row["plain_ms"],
         "bound_ms": scan_row["bound_ms"],
         "bound_by": scan_row["bound_by"],
         "library_ms": None,
+        "design": "N / 8 threads a (b, d) lane, 8 states each, sub-major warps (B/C reads "
+                  "broadcast); 16-step two-stage shared-memory ring filled a chunk ahead (4 lanes "
+                  "a load where di % 4 == 0); partial y summed through shared memory",
         "shape": "b=4 S=2048 di=8192 N=16 bf16 (the launcher's prefill)",
         "by_shape": scan_rows,
         "gpu": gpu,
@@ -949,6 +1037,8 @@ def main():
         **{key: flash_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms", "shape")},
         "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        "design": "bf16 head_dim 64/128: wgmma fed by a TMA/mbarrier ring, producer warpgroup; "
+                  "float32: SIMT",
         "gpu": gpu,
     }, {
         "name": "fused_xent",
@@ -957,6 +1047,8 @@ def main():
         "replaces": "src/repro/kernels/fused_xent/kernel.py:67",
         "launches": lm_train_xent,
         "combine_launches": lm_train_combine,
+        "design": "bf16: wgmma fed by a TMA/mbarrier ring over vocab splits, then a combine "
+                  "kernel; float32: SIMT",
         "max_abs_err": max(e["abs"] for c, e in xent_worst.items() if "float32" in c),
         "max_abs_err_bf16": max(e["abs"] for c, e in xent_worst.items() if "bfloat16" in c),
         **{key: xent_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",

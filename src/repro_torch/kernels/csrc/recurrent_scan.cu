@@ -5,7 +5,8 @@
 // repro.kernels.recurrent_scan.ops.linear_recurrent_scan).  It computes what
 // that kernel computes, not its blocking: the TPU walks time chunks in order
 // on one core with the carry in VMEM, which has no counterpart across the
-// H100's 132 SMs, so here every feature lane walks its own time axis.
+// H100's 132 SMs, so here the chunks of one window of time run side by side
+// in one block and their carries are combined through shared memory.
 //
 // Layout: a, b, out are (T, D) float32, row-major, D = B * H (batch lanes
 // times hidden units); reset is (T, B) bytes (torch.bool), or null for no
@@ -24,61 +25,124 @@
 // Bound: bytes.  Each call reads a and b and writes out once (3 * T * D * 4
 // bytes), plus T * B reset bytes and D * 4 bytes of h0, against 2 flops per
 // element: at T = 128, D = 16384 that is about 25 MB, or 7.5 us at
-// 3.35 TB/s; at D = 4096 about 6.3 MB, 1.9 us, below the cost of a launch.
-// What the design does about it: one pass over the data, with the reset
-// folded into the decay in registers and the carry held in a register in
-// float32.  Consecutive threads own consecutive d, so every load and store
-// of a time row is coalesced.  A time-parallel (chunked) form, for small D
-// where D / 128 blocks leave most SMs idle, is later work.
+// 3.35 TB/s; at D = 4096 about 6.3 MB, 1.9 us, below the cost of a launch
+// and one round trip to memory.  So what matters is that every SM has
+// loads in flight at once, not a long dependent walk per thread.
+//
+// The design: a chunked time-parallel scan in one launch.  A block covers
+// 32 consecutive d (a warp's width: every row access is coalesced) and a
+// window of kWarps * kChunk steps (8 x 16 = 128); warp w owns chunk w of
+// the window, so D = 4096 gives 128 blocks of 256 threads (at most 64
+// registers a thread: four blocks an SM, so D = 16384's 512 blocks run in
+// one wave).  Each thread
+//   1. loads its chunk's a, b and reset as one batch of independent loads
+//      and forms the decay (a_eff_t forward, a_eff_{t+1} in the adjoint,
+//      whose last step reads the next chunk's first row; 0 at t = T - 1;
+//      steps past T are identities, decay 1 and b 0);
+//   2. scans the chunk from zero, keeping the local states and the running
+//      products of the decay in registers;
+//   3. publishes (product, last local state) in shared memory; after one
+//      barrier it folds the chunks before its own, in order, from the
+//      window's carry (h0 or 0 first), c <- P_j * c + H_j, into its
+//      carry-in, and every thread folds all of them into the next window's
+//      carry;
+//   4. writes h_t = local_t + product_t * carry_in once.
+// A reset makes its decay 0 and with it every product that spans it: no
+// special case.  T > 128 walks further windows (in reverse from the last),
+// each with the carry of the one before.  `ref.py::chunked_scan_ref` does
+// the same algebra in PyTorch.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void linear_scan_kernel(const float* __restrict__ a,
-                                   const float* __restrict__ b,
-                                   const unsigned char* __restrict__ reset,
-                                   const float* __restrict__ h0,
-                                   float* __restrict__ out,
-                                   int T, int D, int H, int reverse) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
+constexpr int kWarps = 8;   // chunks a window, one warp each
+constexpr int kChunk = 16;  // steps a chunk; ops.py's KERNEL_CHUNK, checked at load
+
+__global__ void __launch_bounds__(32 * kWarps, 4)
+linear_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   const unsigned char* __restrict__ reset,
+                   const float* __restrict__ h0, float* __restrict__ out,
+                   int T, int D, int H, int reverse) {
+  __shared__ float sP[kWarps][32];  // each chunk's product of decays
+  __shared__ float sH[kWarps][32];  // and its local state at its last step
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int d = blockIdx.x * 32 + lane;
+  const bool live = d < D;
   const int B = D / H;
-  const int lane = d / H;
-  if (!reverse) {
-    float h = h0 ? h0[d] : 0.0f;
-#pragma unroll 8
-    for (int t = 0; t < T; ++t) {
-      const size_t i = static_cast<size_t>(t) * D + d;
-      float at = a[i];
-      if (reset && reset[static_cast<size_t>(t) * B + lane]) at = 0.0f;
-      h = fmaf(at, h, b[i]);
-      out[i] = h;
+  const int rl = live ? d / H : 0;
+
+  constexpr int kWindow = kWarps * kChunk;
+  const int windows = (T + kWindow - 1) / kWindow;
+  float carry = (!reverse && h0 && live) ? h0[d] : 0.0f;
+  for (int k = 0; k < windows; ++k) {
+    const int lo = (reverse ? windows - 1 - k : k) * kWindow + w * kChunk;
+    const int lo_a = lo + reverse;  // first row of the decays: a_eff_{t+1} in the adjoint
+    // every load first, each under its own predicate and none behind a
+    // branch, so that a thread's 3 * kChunk loads are in flight together
+    float loc[kChunk], prod[kChunk];  // b, then local state; a, then product
+    unsigned char r[kChunk];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      loc[i] = 0.0f;
+      prod[i] = 0.0f;
+      r[i] = 0;
+      if (live && lo + i < T) loc[i] = b[static_cast<size_t>(lo + i) * D + d];
+      if (live && lo_a + i < T) prod[i] = a[static_cast<size_t>(lo_a + i) * D + d];
+      if (reset && live && lo_a + i < T) r[i] = reset[static_cast<size_t>(lo_a + i) * B + rl];
     }
-  } else {
-    float h = 0.0f;
-    float decay = 0.0f;  // a_eff_{t+1}; multiplies h = 0 at t = T - 1
-#pragma unroll 8
-    for (int t = T - 1; t >= 0; --t) {
-      const size_t i = static_cast<size_t>(t) * D + d;
-      h = fmaf(decay, h, b[i]);
-      out[i] = h;
-      decay = (reset && reset[static_cast<size_t>(t) * B + lane]) ? 0.0f : a[i];
+    // the decay: 0 at a reset and past the last row (h_{T-1} = b_{T-1} in
+    // the adjoint); steps past T are identities
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      prod[i] = lo + i >= T ? 1.0f : (r[i] ? 0.0f : prod[i]);
     }
+    if (!reverse) {
+#pragma unroll
+      for (int i = 1; i < kChunk; ++i) {
+        loc[i] = fmaf(prod[i], loc[i - 1], loc[i]);
+        prod[i] *= prod[i - 1];
+      }
+    } else {
+#pragma unroll
+      for (int i = kChunk - 2; i >= 0; --i) {
+        loc[i] = fmaf(prod[i], loc[i + 1], loc[i]);
+        prod[i] *= prod[i + 1];
+      }
+    }
+    const int end = reverse ? 0 : kChunk - 1;
+    sP[w][lane] = prod[end];
+    sH[w][lane] = loc[end];
+    __syncthreads();
+    float c = carry, c_in = carry;
+#pragma unroll
+    for (int j = 0; j < kWarps; ++j) {
+      const int q = reverse ? kWarps - 1 - j : j;  // chunks in the scan's order
+      if (q == w) c_in = c;
+      c = fmaf(sP[q][lane], c, sH[q][lane]);
+    }
+    carry = c;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      const int t = lo + i;
+      if (live && t < T) out[static_cast<size_t>(t) * D + d] = fmaf(prod[i], c_in, loc[i]);
+    }
+    if (k + 1 < windows) __syncthreads();  // the next window reuses sP and sH
   }
 }
 
 }  // namespace
 
+// Steps a chunk, so that the wrapper can check its copy of kChunk.
+extern "C" int linear_scan_chunk() { return kChunk; }
+
 extern "C" int linear_scan_f32(const float* a, const float* b,
                                const unsigned char* reset, const float* h0,
                                float* out, int T, int D, int H, int reverse,
                                void* stream) {
-  constexpr int kThreads = 128;
   if (T > 0 && D > 0) {
-    const int blocks = (D + kThreads - 1) / kThreads;
-    linear_scan_kernel<<<blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+    const int blocks = (D + 31) / 32;
+    linear_scan_kernel<<<blocks, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
         a, b, reset, h0, out, T, D, H, reverse);
   }
   return static_cast<int>(cudaGetLastError());

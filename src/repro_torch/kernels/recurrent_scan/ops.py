@@ -26,13 +26,20 @@ import torch
 
 from repro_torch.kernels.recurrent_scan.ref import scan_ref
 
+KERNEL_CHUNK = 16  # steps a chunk in csrc/recurrent_scan.cu (kChunk, checked in _kernel)
+
 
 @functools.cache
 def _kernel():
     """The kernel's C entry point, built and loaded at first use."""
     from repro_torch.kernels import load_library
 
-    fn = load_library("recurrent_scan.cu").linear_scan_f32
+    lib = load_library("recurrent_scan.cu")
+    lib.linear_scan_chunk.restype = ctypes.c_int
+    if lib.linear_scan_chunk() != KERNEL_CHUNK:
+        raise RuntimeError(f"recurrent_scan.cu scans chunks of {lib.linear_scan_chunk()} steps, "
+                           f"ops.KERNEL_CHUNK says {KERNEL_CHUNK}")
+    fn = lib.linear_scan_f32
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

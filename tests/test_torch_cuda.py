@@ -5,10 +5,13 @@ This file imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The recurrent-scan kernel is held against its plain versions (forward and
-adjoint at 1e-5, gradients at 1e-4, as in docs/KERNELS.md), and a short
+adjoint at 1e-5, gradients at 1e-4, as in docs/KERNELS.md), its chunked
+algebra's twin `chunked_scan_ref` among them, at T around its 16-step
+chunks with resets on a chunk's first and last step, and a short
 rec-IPPO run on the GPU must go through the kernel.  The selective-scan
 kernel is held against its plain version (float32 at 1e-4; bfloat16 x/B/C
-with y at 2e-2, bf16's rounding, and the float32 state at 1e-4), and a
+with y at 2e-2, bf16's rounding, and the float32 state at 1e-4), also at
+S = 1 and around its 16-step stage, ragged di and N = 4 and 8, and a
 smoke-sized Falcon-Mamba prefill on the GPU must launch it once a layer.
 The flash-attention and fused-xent kernels are held against their plain
 versions by each one's `ref.kernel_errors` (flash: 2e-5 in float32; in
@@ -27,11 +30,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.recurrent_scan import (  # noqa: E402
+    chunked_scan_ref,
     linear_recurrence_ref,
     linear_recurrent_scan,
     scan_ref,
 )
-from repro_torch.kernels.recurrent_scan.ops import _scan  # noqa: E402
+from repro_torch.kernels.recurrent_scan.ops import KERNEL_CHUNK, _scan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.fused_xent import fused_softmax_xent  # noqa: E402
@@ -49,19 +53,27 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(T, B, H, device, seed=0):
+def _inputs(T, B, H, device, seed=0, pattern="random"):
     g = torch.Generator().manual_seed(seed)
     a = torch.sigmoid(torch.randn(T, B, H, generator=g))
     b = torch.randn(T, B, H, generator=g) * 0.1
     h0 = torch.randn(B, H, generator=g)
     reset = torch.rand(T, B, generator=g) < 0.3
+    if pattern != "random":  # a reset on the first or the last step of every kernel chunk
+        step = 0 if pattern == "chunk_first" else KERNEL_CHUNK - 1
+        reset = (torch.arange(T) % KERNEL_CHUNK == step)[:, None].expand(T, B).contiguous()
     return (x.to(device) for x in (a, b, h0, reset))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,B,H", [(128, 64, 64), (33, 5, 7), (1, 3, 4)])
-def test_kernel_matches_plain_versions(cuda, T, B, H):
-    a, b, h0, reset = _inputs(T, B, H, cuda)
+@pytest.mark.parametrize("T,B,H,pattern", [
+    (128, 64, 64, "random"), (33, 5, 7, "random"), (1, 3, 4, "random"),
+    # the chunked design's edges: T around its 16-step chunks and 128-step windows
+    (15, 5, 7, "chunk_first"), (17, 5, 7, "chunk_last"), (129, 5, 7, "chunk_first"),
+    (129, 5, 7, "chunk_last"),
+])
+def test_kernel_matches_plain_versions(cuda, T, B, H, pattern):
+    a, b, h0, reset = _inputs(T, B, H, cuda, pattern=pattern)
     before = linear_recurrent_scan.launches
     out = linear_recurrent_scan(a, b, h0, reset)
     rev = _scan(a, b, reset, None, reverse=True)
@@ -70,8 +82,12 @@ def test_kernel_matches_plain_versions(cuda, T, B, H):
     torch.testing.assert_close(
         out, linear_recurrence_ref(a, b, h0, reset), atol=FWD_TOL, rtol=FWD_TOL
     )
-    want = scan_ref(a.reshape(T, -1), b.reshape(T, -1), reset, None, reverse=True)
+    flat = (a.reshape(T, -1), b.reshape(T, -1), reset)
+    want = scan_ref(*flat, None, reverse=True)
     torch.testing.assert_close(rev, want.reshape(T, B, H), atol=FWD_TOL, rtol=FWD_TOL)
+    for got, h, direction in ((out, h0.reshape(-1), False), (rev, None, True)):
+        chunked = chunked_scan_ref(*flat, h, KERNEL_CHUNK, reverse=direction)
+        torch.testing.assert_close(got, chunked.reshape(T, B, H), atol=FWD_TOL, rtol=FWD_TOL)
 
     g = torch.randn(T, B, H, device=cuda)
     xs = [x.clone().requires_grad_(True) for x in (a, b, h0)]
@@ -123,7 +139,13 @@ def _scan_inputs(b, S, di, N, dtype, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,S,di,N", [(1, 64, 8192, 16), (3, 37, 200, 16), (2, 33, 130, 8),
-                                      (1, 5, 64, 4)])
+                                      (1, 5, 64, 4),
+                                      # the staged design's edges: S = 1 and S around its
+                                      # 16-step stage, di not a multiple of a block's lanes,
+                                      # N = 4 and 8 with an odd b * S
+                                      (1, 1, 200, 16), (3, 15, 130, 16), (3, 17, 200, 16),
+                                      (3, 17, 130, 8), (1, 15, 200, 8), (3, 15, 200, 4),
+                                      (1, 17, 130, 4)])
 def test_selective_scan_kernel_matches_plain_version(cuda, b, S, di, N, dtype):
     t = _scan_inputs(b, S, di, N, getattr(torch, dtype), cuda)
     before = selective_scan.launches

@@ -6,6 +6,9 @@ sequential oracle, forward at 1e-5 and gradients da/db/dh0 at 1e-4 (the
 tolerances of docs/KERNELS.md), over the shapes and reset patterns of
 tests/test_recurrent_scan.py.  The CUDA kernel itself is compared with its
 plain version by tests/test_torch_cuda.py (on a GPU) and by chip_smoke.py.
+`chunked_scan_ref`, the kernel's chunked algebra in PyTorch, is held
+against the JAX oracle (forward) and `scan_ref` (both directions) across
+ragged T and resets on a chunk's first and last step.
 """
 import numpy as np
 import pytest
@@ -18,10 +21,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.recurrent_scan.ops import linear_recurrent_scan as jax_scan  # noqa: E402
 from repro.kernels.recurrent_scan.ref import linear_recurrence_ref as jax_ref  # noqa: E402
 from repro_torch.kernels.recurrent_scan import (  # noqa: E402
+    chunked_scan_ref,
     linear_recurrence_ref,
     linear_recurrent_scan,
     scan_ref,
 )
+from repro_torch.kernels.recurrent_scan.ops import KERNEL_CHUNK  # noqa: E402
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -118,3 +123,28 @@ def test_rejects_bad_operands():
     with pytest.raises(TypeError):
         linear_recurrent_scan(a, b, h0, reset.float())
 
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("pattern", PATTERNS + ["chunk_first", "chunk_last"])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 129])
+def test_chunked_scan_matches_the_sequential_scan(T, pattern, reverse):
+    """The kernel's algebra, at 1e-5: its products are taken in another order.
+
+    D = 35 is B = 5 batch lanes of H = 7 features; T runs around the
+    kernel's 16-step chunk, and the resets fall on the first or the last
+    step of every chunk (where the adjoint's shifted decay crosses chunks).
+    """
+    base = "none" if pattern.startswith("chunk") else pattern
+    a, b, h0, reset = _inputs(T, (5,), 7, base, seed=6)
+    if pattern.startswith("chunk"):
+        step = 0 if pattern == "chunk_first" else KERNEL_CHUNK - 1
+        reset = np.broadcast_to((np.arange(T) % KERNEL_CHUNK == step)[:, None], (T, 5)).copy()
+    a2, b2, r2 = _t(a).reshape(T, 35), _t(b).reshape(T, 35), _t(reset)
+    h = None if reverse else _t(h0).reshape(35)
+    got = chunked_scan_ref(a2, b2, r2, h, KERNEL_CHUNK, reverse=reverse)
+    torch.testing.assert_close(got, scan_ref(a2, b2, r2, h, reverse=reverse),
+                               atol=FWD_TOL, rtol=FWD_TOL)
+    if not reverse:
+        want = np.asarray(jax_ref(_j(a), _j(b), _j(h0), _j(reset))).reshape(T, 35)
+        np.testing.assert_allclose(got.numpy(), want, atol=FWD_TOL, rtol=FWD_TOL)
