@@ -82,6 +82,28 @@ InternLM2-1.8B dense LM training, the third slice:
     the same weights on the card and on the CPU: the loss, every gradient
     and the parameters after one train step at 1e-4.
 
+Feed-forward IPPO and MAPPO, and rec-MAPPO, the sixth slice (the paper's
+headline loop):
+
+15. train: ippo on spread, mappo on lbf and rec-MAPPO (linear core) on
+    spread at PPOConfig's defaults and the registry's env defaults, 8
+    seeds as lanes of one batch x 256 envs x 256 iterations (2 updates a
+    lane), a greedy evaluation of 32 episodes a lane every 128 iterations,
+    3 runs each: losses (8, 2) and eval returns (8, 2, 32) finite, env
+    steps/s (median, min, max), rec-MAPPO's recurrent_scan launches what
+    one lane's updates need;
+16. the same 8 ippo seeds one run after another: the batched/serial
+    ratio;
+17. tests/test_onpolicy.py's IPPO milestone on matrix_game (150 updates x
+    16 envs): within 10% of 4.994 with at least half the recorded
+    improvement;
+18. slice parity: one ippo, one mappo and one rec-MAPPO (linear core,
+    through recurrent_scan on the card) update of 2 seed lanes x 256 envs
+    on spread from the same state on the card and on the CPU: the first
+    minibatch's loss and gradients and the params after its step at 1e-4;
+19. the MARL launcher (`repro_torch.launch.train_marl.main`), ippo on lbf
+    with 8 seeds, on the card.
+
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -106,7 +128,7 @@ F32_FLOPS_PER_S = 67e12  # the same sheet: float32 outside the tensor cores
 SFU_EXP_PER_S = 16 * 132 * 1.98e9
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
-SLICE_TOL = 1e-4  # full update on the card vs the CPU: 16 Adam steps, other sum orders
+SLICE_TOL = 1e-4  # an update on the card vs the CPU: other sum orders
 PATH_SHAPES = [(128, 64, 64), (128, 256, 64)]  # (T, B, H): minibatch and bootstrap unrolls
 RAGGED = (33, 5, 7)  # D = 35: not a multiple of 32 (a warp) or of the block
 # the chunked design's edges: T around its 16-step chunks and 128-step windows
@@ -158,6 +180,18 @@ XENT_CASES = [(64, 128, 1000), (100, 64, 512), (128, 32, 2048), (32, 16, 77),
               (129, 64, 255), (129, 128, 257), (64, 40, 1001)]
 XENT_PATH = (16384, 2048, 92544)  # (B*S, d_model, vocab)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 4096
+
+# the paper's headline loop: seed-batched Anakin training at PPOConfig's
+# defaults with interleaved greedy evaluation (2 updates and 2 evaluations
+# of 32 episodes a lane), on the registry's env defaults
+MARL_SEEDS, MARL_ENVS, MARL_ITERATIONS, MARL_EVAL_EVERY, MARL_EPISODES = 8, 256, 256, 128, 32
+MARL_RUNS = [("ippo", "spread", {}), ("mappo", "lbf", {}),
+             ("rec_mappo", "spread", {"recurrent_core": "linear"})]
+MARL_REPEATS = 3
+# rec-MAPPO's unrolls with the seed lanes folded into the kernel's D axis:
+# (T, lanes x 64 envs, H) a minibatch and (T, lanes x 256 envs, H) the bootstrap
+MARL_PATH_SHAPES = [(128, MARL_SEEDS * MARL_ENVS // 4, 64), (128, MARL_SEEDS * MARL_ENVS, 64)]
+SEED_IPPO_FIRST15, SEED_IPPO_LAST15 = 2.281, 4.994  # tests/test_onpolicy.py:18-19
 
 
 def _require(cond, msg):
@@ -236,7 +270,7 @@ def _within(x, y, tol):
 def kernel_parity(ops, ref):
     """Forward, adjoint and gradients of the op against the plain versions."""
     worst = {"forward": 0.0, "reverse": 0.0, "chunked": 0.0, "grad": 0.0}
-    for T, B, H in PATH_SHAPES + [RAGGED] + SCAN_EDGE_SHAPES:
+    for T, B, H in PATH_SHAPES + MARL_PATH_SHAPES + [RAGGED] + SCAN_EDGE_SHAPES:
         for i, pattern in enumerate(PATTERNS):
             a, b, h0, reset = _inputs(T, B, H, pattern, seed=i, chunk=ops.KERNEL_CHUNK)
             out = ops.linear_recurrent_scan(a, b, h0, reset)
@@ -320,7 +354,7 @@ def kernel_timing(ops, ref):
     from a CUDA graph (`_device_ms`).  Each has its share of the bound.
     """
     rows = []
-    for T, B, H in PATH_SHAPES:
+    for T, B, H in PATH_SHAPES + MARL_PATH_SHAPES:
         a, b, h0, reset = _inputs(T, B, H, "random", seed=0)
         D = B * H
         flat = (a.reshape(T, D), b.reshape(T, D), reset, h0.reshape(D))
@@ -423,6 +457,187 @@ def slice_parity(system, state):
     _require(worst <= SLICE_TOL, f"update on the card differs from the CPU by {worst}")
     _require(abs(gpu_loss - cpu_loss) <= SLICE_TOL * (1 + abs(cpu_loss)), "update loss differs")
     return worst, abs(gpu_loss - cpu_loss)
+
+
+def _marl_run(system, num_seeds, seed=0):
+    """One seed-batched (or single) Anakin run with interleaved eval, timed to the last op."""
+    from repro_torch.core import train_anakin
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_anakin(system, seed, MARL_ITERATIONS, MARL_ENVS, eval_every=MARL_EVAL_EVERY,
+                       eval_episodes=MARL_EPISODES, num_seeds=num_seeds, device="cuda")
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def marl_train(ops):
+    """This slice's path: ippo, mappo and rec-MAPPO (linear core), 8 seeds as lanes of one batch.
+
+    Each run: 256 envs x 8 seeds x 256 iterations (2 updates a lane) with
+    a greedy evaluation of 32 episodes a lane every 128 iterations; env
+    steps/s counts the training steps over the whole call's wall, the
+    evaluations included.  The scan counter is set to 0 before each run
+    and read after it.
+    """
+    from repro_torch.systems import PPOConfig
+    from repro_torch.systems.registry import make_pair
+
+    rows = {}
+    for name, env, overrides in MARL_RUNS:
+        _, system = make_pair(name, env, **overrides)
+        cfg = PPOConfig(**overrides)
+        walls, launches = [], []
+        for _ in range(MARL_REPEATS):
+            ops.linear_recurrent_scan.launches = 0
+            (state, metrics, evals), wall = _marl_run(system, MARL_SEEDS)
+            launches.append(ops.linear_recurrent_scan.launches)
+            walls.append(wall)
+        updates = MARL_ITERATIONS // cfg.rollout_len
+        n_agents = len(system.spec.agent_ids)
+        _require(metrics["loss"].shape == (MARL_SEEDS, updates),
+                 f"{name} losses {tuple(metrics['loss'].shape)}")
+        _require(evals.episode_return.shape == (MARL_SEEDS, MARL_ITERATIONS // MARL_EVAL_EVERY,
+                                                MARL_EPISODES),
+                 f"{name} eval returns {tuple(evals.episode_return.shape)}")
+        for k, v in [*metrics.items(), ("eval", evals.episode_return)]:
+            _require(bool(torch.isfinite(v).all()), f"{name}: non-finite {k}")
+        _require(state.train.steps.tolist() == [updates] * MARL_SEEDS, f"{name} train.steps")
+        expected = 0
+        if name.startswith("rec_"):
+            # per update: a bootstrap critic unroll per agent, then per
+            # minibatch an actor and a critic unroll per agent, forward and
+            # backward; the seed lanes fold into the kernel's D axis
+            expected = updates * (n_agents + cfg.epochs * cfg.num_minibatches * n_agents * 4)
+        _require(launches == [expected] * MARL_REPEATS,
+                 f"{name}: recurrent_scan launched {launches}x a run, expected {expected}")
+        steps = MARL_ITERATIONS * MARL_ENVS * MARL_SEEDS
+        rates = sorted(steps / w for w in walls)
+        rows[name] = {
+            "env": env, "walls_s": walls, "env_steps_per_s": rates[len(rates) // 2],
+            "env_steps_per_s_min": rates[0], "env_steps_per_s_max": rates[-1],
+            "losses": metrics["loss"].mean(0).tolist(),
+            "eval_return": evals.episode_return.mean((0, 2)).tolist(),
+            "launches": launches[-1], "system": system,
+        }
+    return rows
+
+
+def marl_serial(system, batched_wall):
+    """The same 8 seeds, one run after another: the counterpart of BENCH_speed's seed column."""
+    walls = []
+    for seed in range(MARL_SEEDS):
+        (_, metrics, evals), wall = _marl_run(system, None, seed)
+        _require(bool(torch.isfinite(metrics["loss"]).all()), f"serial seed {seed}: loss")
+        walls.append(wall)
+    steps = MARL_ITERATIONS * MARL_ENVS * MARL_SEEDS
+    return {"walls_s": walls, "env_steps_per_s": steps / sum(walls),
+            "batched_over_serial": sum(walls) / batched_wall}
+
+
+def marl_milestone():
+    """tests/test_onpolicy.py's IPPO milestone (matrix_game, 150 updates x 16 envs), on the card."""
+    from repro_torch.core import train_anakin
+    from repro_torch.envs import MatrixGame
+    from repro_torch.systems import PPOConfig, make_ippo
+
+    system = make_ippo(MatrixGame(horizon=10),
+                       PPOConfig(rollout_len=32, epochs=4, num_minibatches=2,
+                                 entropy_coef=0.02, learning_rate=1e-3))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = train_anakin(system, 0, 150 * 32, 16, device="cuda")
+    r = metrics["reward"].reshape(150, 32).mean(-1).cpu()
+    wall = time.perf_counter() - t0
+    first, late = float(r[:15].mean()), float(r[-15:].mean())
+    _require(abs(late - SEED_IPPO_LAST15) < 0.1 * SEED_IPPO_LAST15,
+             f"milestone: last 15 updates {late}, not within 10% of {SEED_IPPO_LAST15}")
+    _require(late - first > 0.5 * (SEED_IPPO_LAST15 - SEED_IPPO_FIRST15),
+             f"milestone: improvement {late - first}")
+    return {"first15": first, "last15": late, "wall_s": wall}
+
+
+def marl_update_parity(name, overrides):
+    """One seed-lane update of ``name`` on spread from the same state, on the card and the CPU.
+
+    Held at ``SLICE_TOL``: the first minibatch's per-lane loss and
+    gradients, the params after the first optimizer step, and the update's
+    mean loss.  Over an update's later steps Adam turns gradient
+    components that rounding leaves near zero into steps of about the
+    learning rate, so the params after all of them are a reading
+    (returned, not held).
+    """
+    from repro_torch.core.buffer import RolloutState
+    from repro_torch.core.system import _step_phase, _training_env, init_system_state
+    from repro_torch.core.system import seed_generators
+    from repro_torch.systems import PPOConfig, onpolicy
+    from repro_torch.systems.registry import make_pair
+    from repro_torch.tree import tree_leaves, tree_map
+
+    _, system = make_pair(name, "spread", **overrides)
+    cfg = PPOConfig(**overrides)
+    lanes, envs = 2, MARL_ENVS
+    tenv = _training_env(system.env)
+    st = init_system_state(system, seed_generators(0, lanes, "cuda"), envs, tenv)
+    with torch.no_grad():
+        for _ in range(cfg.rollout_len):
+            st, _ = _step_phase(system, tenv, st)
+    # feed-forward PPO shuffles the flattened (T * envs) rows, recurrent PPO the envs
+    rows = st.buffer.storage.discount.shape[0] * envs
+    g = torch.Generator().manual_seed(0)
+    perm = {n: torch.stack([torch.randperm(n, generator=g) for _ in range(lanes)])
+            for n in (rows, envs)}
+    hooks = {k: getattr(onpolicy, k) for k in
+             ("_row_permutation", "_env_permutation", "_value_and_grad", "_apply")}
+    results = []
+    try:
+        for dev in ("cuda", "cpu"):
+            first = {}
+
+            def value_and_grad(*args):
+                out = hooks["_value_and_grad"](*args)
+                first.setdefault("loss_grads", out)
+                return out
+
+            def apply(*args):
+                out = hooks["_apply"](*args)
+                first.setdefault("params", out[0])
+                return out
+
+            onpolicy._row_permutation = onpolicy._env_permutation = (
+                lambda n, gen, dev=dev: perm[n].to(dev))
+            onpolicy._value_and_grad, onpolicy._apply = value_and_grad, apply
+            move = lambda x: x.to(dev)
+            buffer = RolloutState(tree_map(move, st.buffer.storage), st.buffer.t)
+            new, _, m = system.update(tree_map(move, st.train), buffer,
+                                      seed_generators(0, lanes, dev))
+            loss, grads = first["loss_grads"]
+            results.append({"loss": [loss], "grads": tree_leaves(grads),
+                            "params": tree_leaves(first["params"]),
+                            "update_params": tree_leaves(new.params),
+                            "update_loss": [m["loss"]]})
+    finally:
+        for k, v in hooks.items():
+            setattr(onpolicy, k, v)
+    gpu, cpu = results
+    err = {k: max(_err(x.cpu(), y) for x, y in zip(gpu[k], cpu[k])) for k in gpu}
+    err["steps"] = cfg.epochs * cfg.num_minibatches
+    for k in ("loss", "grads", "update_loss"):
+        _require(all(_within(x.cpu(), y, SLICE_TOL) for x, y in zip(gpu[k], cpu[k])),
+                 f"{name}: {k} on the card differs from the CPU by {err[k]}")
+    _require(err["params"] <= SLICE_TOL,
+             f"{name}: params after the first step differ from the CPU by {err['params']}")
+    return err
+
+
+def marl_launcher():
+    """The MARL entry point a user calls, on the card (its default device)."""
+    from repro_torch.launch import train_marl
+
+    return train_marl.main(["--system", "ippo", "--env", "lbf", "--runner", "anakin",
+                            "--num-seeds", str(MARL_SEEDS), "--num-envs", str(MARL_ENVS),
+                            "--iterations", str(MARL_ITERATIONS), "--eval-every",
+                            str(MARL_EVAL_EVERY)])
 
 
 def _scan_inputs(b, S, di, N, dtype, seed):
@@ -847,7 +1062,8 @@ def main():
         f"kernel parity: max abs err forward {worst['forward']:.3e} (tol {FWD_TOL}), "
         f"reverse {worst['reverse']:.3e} (tol {FWD_TOL}), against chunked_scan_ref "
         f"{worst['chunked']:.3e} (tol {FWD_TOL}), grads {worst['grad']:.3e} (tol {GRAD_TOL}) "
-        f"over shapes {PATH_SHAPES + [RAGGED] + SCAN_EDGE_SHAPES} x resets {PATTERNS}"
+        f"over shapes {PATH_SHAPES + MARL_PATH_SHAPES + [RAGGED] + SCAN_EDGE_SHAPES} x resets "
+        f"{PATTERNS}"
     )
 
     rows = kernel_timing(ops, ref)
@@ -875,6 +1091,53 @@ def main():
     print(f"slice parity: one update on the card vs the CPU, max abs param diff "
           f"{param_err:.3e}, loss diff {loss_err:.3e} (tol {SLICE_TOL})")
     del system, state
+
+    # ---- slice 6: the paper's headline loop, feed-forward IPPO/MAPPO and rec-MAPPO
+    t0 = time.perf_counter()
+    marl = marl_train(ops)
+    for name, r in marl.items():
+        print(
+            f"train (marl): {name} on {r['env']}, {MARL_SEEDS} seeds x {MARL_ENVS} envs x "
+            f"{MARL_ITERATIONS} iterations, greedy eval of {MARL_EPISODES} episodes a lane every "
+            f"{MARL_EVAL_EVERY}: {r['env_steps_per_s']:.0f} env steps/s median of "
+            f"{MARL_REPEATS} (min {r['env_steps_per_s_min']:.0f}, max "
+            f"{r['env_steps_per_s_max']:.0f}), walls {[round(w, 3) for w in r['walls_s']]} s; "
+            f"mean losses {[round(x, 4) for x in r['losses']]}; eval returns "
+            f"{[round(x, 4) for x in r['eval_return']]}; recurrent_scan launches "
+            f"{r['launches']} a run {tag}"
+        )
+    batched = marl["ippo"]
+    serial = marl_serial(batched["system"], statistics.median(batched["walls_s"]))
+    print(
+        f"train (marl, serial): ippo on spread, seeds 0-{MARL_SEEDS - 1} one run after another: "
+        f"walls {[round(w, 3) for w in serial['walls_s']]} s = {serial['env_steps_per_s']:.0f} "
+        f"env steps/s; batched over serial {serial['batched_over_serial']:.2f}x {tag}"
+    )
+    milestone = marl_milestone()
+    print(
+        f"milestone: ippo matrix_game (tests/test_onpolicy.py), 150 updates x 16 envs: mean "
+        f"reward first 15 updates {milestone['first15']:.3f}, last 15 {milestone['last15']:.3f} "
+        f"(within 10% of {SEED_IPPO_LAST15}, improvement over half of "
+        f"{SEED_IPPO_LAST15 - SEED_IPPO_FIRST15:.3f}) in {milestone['wall_s']:.1f} s {tag}"
+    )
+    for name, _, overrides in MARL_RUNS:
+        ops.linear_recurrent_scan.launches = 0
+        e = marl_update_parity(name, overrides)
+        launches = ops.linear_recurrent_scan.launches
+        _require((launches > 0) == name.startswith("rec_"),
+                 f"{name} parity update launched recurrent_scan {launches}x")
+        print(f"slice parity: {name} on spread, one update of 2 seed lanes x {MARL_ENVS} envs "
+              f"on the card vs the CPU: first minibatch loss {e['loss']:.3e}, grads "
+              f"{e['grads']:.3e}, params after its step {e['params']:.3e} (tol {SLICE_TOL}); "
+              f"update's mean loss {e['update_loss']:.3e} (tol {SLICE_TOL}); after all "
+              f"{e['steps']} steps params {e['update_params']:.3e} (a reading); recurrent_scan "
+              f"launches {launches}")
+    launched = marl_launcher()
+    print(f"launcher (marl): ippo on lbf, {MARL_SEEDS} seeds: {launched['env_steps_per_s']:.0f} "
+          f"env steps/s, final eval return {launched['eval_return']:.4f} {tag}")
+    rec_mappo_launches = marl["rec_mappo"]["launches"]
+    del marl, batched
+    print(f"slice 6 (marl) in {time.perf_counter() - t0:.1f} s")
 
     # ---- slice 2: Falcon-Mamba-7B greedy serving
     scan_worst = scan_parity(sops, sref)
@@ -990,6 +1253,7 @@ def main():
         "source": "src/repro_torch/kernels/csrc/recurrent_scan.cu",
         "replaces": "src/repro/kernels/recurrent_scan/kernel.py:72",
         "launches": run["launches"],
+        "launches_rec_mappo": rec_mappo_launches,
         "max_abs_err": max(worst.values()),
         "ms": main_row["ms"],
         "device_ms": main_row["device_ms"],

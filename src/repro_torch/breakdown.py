@@ -1,18 +1,21 @@
-"""Where the time of the rec-IPPO slice goes on a CUDA GPU.
+"""Where the time of a MARL training path goes on a CUDA GPU.
 
-    PYTHONPATH=src python -m repro_torch.breakdown [--num-envs 256]
+    PYTHONPATH=src python -m repro_torch.breakdown [--num-envs 256] \\
+        [--system rec_ippo] [--env matrix_game] [--num-seeds 0]
 
-Builds rec-IPPO with the linear core on matrix_game at PPOConfig's
-defaults, runs one rollout and update to warm up (kernel build, cuBLAS
-handles, the caching allocator), then times one more rollout (the acting
-iterations) and its update with the host clock around synchronised work.
-A third rollout and update run under `torch.profiler`, which gives the
-device's busy time per phase (the sum of its kernels' times), its idle
-share, the kernel launches per phase and the kernels that take the most
-device time.  For the recurrent-scan kernel it sets the profiler's count
-beside the wrapper's own launch counter and beside the trace's kernel
-events grouped by grid size (one grid per unroll width).  Prints one JSON
-object.
+Builds ``--system`` on ``--env`` from the registries at PPOConfig's
+defaults (rec-IPPO with the linear core on matrix_game unless told
+otherwise; a recurrent system always gets the linear core), with
+``--num-seeds`` seed lanes if asked.  It runs one rollout and update to
+warm up (kernel build, cuBLAS handles, the caching allocator), then times
+one more rollout (the acting iterations) and its update with the host
+clock around synchronised work.  A third rollout and update run under
+`torch.profiler`, which gives the device's busy time per phase (the sum
+of its kernels' times), its idle share, the kernel launches per phase and
+the kernels that take the most device time.  For the recurrent-scan
+kernel it sets the profiler's count beside the wrapper's own launch
+counter and beside the trace's kernel events grouped by grid size (one
+grid per unroll width).  Prints one JSON object.
 """
 from __future__ import annotations
 
@@ -28,10 +31,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
-from repro_torch.core.system import _step_phase, _training_env, init_system_state
-from repro_torch.envs import MatrixGame
+from repro_torch.core.system import (
+    _step_phase,
+    _training_env,
+    init_system_state,
+    seed_generators,
+)
+from repro_torch.envs import REGISTRY as ENVS
 from repro_torch.kernels.recurrent_scan import linear_recurrent_scan
-from repro_torch.systems import PPOConfig, make_rec_ippo
+from repro_torch.systems.registry import REGISTRY as SYSTEMS
+from repro_torch.systems.registry import make_pair
 
 SCAN_KERNEL = "linear_scan_kernel"
 
@@ -121,15 +130,19 @@ def main(argv=None):
     """Run the breakdown and print it as JSON."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--num-envs", type=int, default=256)
+    parser.add_argument("--system", choices=sorted(SYSTEMS), default="rec_ippo")
+    parser.add_argument("--env", choices=sorted(ENVS), default="matrix_game")
+    parser.add_argument("--num-seeds", type=int, default=0, help="seed lanes (0: one run)")
     args = parser.parse_args(argv)
     device = resolve_device()
-    cfg = PPOConfig(recurrent_core="linear")
-    system = make_rec_ippo(MatrixGame(), cfg)
+    overrides = {"recurrent_core": "linear"} if args.system.startswith("rec_") else {}
+    _, system = make_pair(args.system, args.env, **overrides)
     tenv = _training_env(system.env)
-    steps = cfg.rollout_len
-    st, init_s = _timed(
-        init_system_state, system, torch.Generator(device).manual_seed(0), args.num_envs, tenv
-    )
+    steps = SYSTEMS[args.system].config_cls(**overrides).rollout_len
+    lanes = args.num_seeds or None
+    generator = (torch.Generator(device).manual_seed(0) if lanes is None
+                 else seed_generators(0, lanes, device))
+    st, init_s = _timed(init_system_state, system, generator, args.num_envs, tenv)
     st, warm_act_s = _timed(_rollout, system, tenv, st, steps)
     st, warm_update_s = _timed(_update, system, st)
     st, act_s = _timed(_rollout, system, tenv, st, steps)
@@ -144,6 +157,9 @@ def main(argv=None):
     print(json.dumps({
         "gpu": gpu,
         "torch": torch.__version__,
+        "system": args.system,
+        "env": args.env,
+        "num_seeds": args.num_seeds,
         "num_envs": args.num_envs,
         "rollout_len": steps,
         "init_s": init_s,
@@ -152,9 +168,12 @@ def main(argv=None):
             "act_s": act_s,
             "act_ms_per_iteration": act_s / steps * 1e3,
             "update_s": update_s,
-            "env_steps_per_s": args.num_envs * steps / (act_s + update_s),
+            "env_steps_per_s": args.num_envs * (lanes or 1) * steps / (act_s + update_s),
         },
         "profiled": phases,
+        # a rollout and its update together, as one training cycle runs them
+        "device_idle_share": 1 - sum(p["device_busy_s"] for p in phases.values())
+        / sum(p["wall_s"] for p in phases.values()),
     }, indent=1))
 
 

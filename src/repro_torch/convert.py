@@ -27,13 +27,21 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import Carry, EvalMetrics, SystemState, TrainState, Transition
+from repro_torch.envs.api import TimeStep
+from repro_torch.envs.lbf import LbfState
+from repro_torch.envs.matrix_game import MatrixGameState
+from repro_torch.envs.spread import SpreadState
+from repro_torch.envs.wrappers import EpisodeStatsState
 from repro_torch.models.model import LM
 from repro_torch.optim.optimizers import AdamState
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 NAMEDTUPLES = {
     cls.__name__: cls
-    for cls in (AdamState, Carry, EvalMetrics, SystemState, TrainState, Transition)
+    for cls in (
+        AdamState, Carry, EpisodeStatsState, EvalMetrics, LbfState, MatrixGameState,
+        SpreadState, SystemState, TimeStep, TrainState, Transition,
+    )
 }
 
 
@@ -81,6 +89,20 @@ def params_from_jax(tree, device="cpu"):
 def params_to_jax(tree):
     """A tree of tensors -> the same tree of numpy arrays (on the host)."""
     return _convert(tree, _to_numpy, lambda cls: cls)
+
+
+def reset_from_jax(reset, device="cpu"):
+    """A ``jax.vmap``-ed env reset ``(state, TimeStep)`` -> one batched port reset.
+
+    The vmap gives every leaf the leading env axis the port's batched envs
+    carry, so the state (a `SpreadState`, `LbfState`, ... or a stack of
+    them under `EpisodeStats`) and the first `TimeStep` cross as they are.
+    """
+    state, timestep = params_from_jax(reset, device)
+    sizes = {x.shape[0] if x.dim() else None for x in tree_leaves((state, timestep))}
+    if len(sizes) != 1 or None in sizes:
+        raise ValueError(f"a vmap-ed reset leads every leaf with one env axis; got {sizes}")
+    return state, timestep
 
 
 def _unstack_layers(tree, num_layers):

@@ -1,5 +1,12 @@
-"""Types, rollout buffer, `System` and the Anakin runner (port of `repro.core`)."""
-from repro_torch.core.system import System, init_system_state, make_anakin, train_anakin
+"""Types, rollout buffer, `System` and its runners (port of `repro.core`)."""
+from repro_torch.core.system import (
+    System,
+    init_system_state,
+    make_anakin,
+    run_environment_loop,
+    seed_generators,
+    train_anakin,
+)
 from repro_torch.core.types import Carry, EvalMetrics, SystemState, TrainState, Transition
 
 __all__ = [
@@ -11,5 +18,7 @@ __all__ = [
     "Transition",
     "init_system_state",
     "make_anakin",
+    "run_environment_loop",
+    "seed_generators",
     "train_anakin",
 ]

@@ -1,6 +1,7 @@
 """The on-policy rollout accumulator (port of `repro.core.buffer`'s ``rollout_*``).
 
-A time-major ``(rollout_len, num_envs, ...)`` trajectory that the trainer
+A time-major ``(rollout_len, num_envs, ...)`` trajectory (``(rollout_len,
+S, N, ...)`` with seed lanes) that the trainer
 consumes whole and then resets.  Unlike the reference, storage is written
 in place (nothing else holds a reference to it), and the cursor ``t`` is
 a Python int, so the runner's update gate reads it without waiting on the
@@ -22,19 +23,22 @@ class RolloutState(NamedTuple):
     t: int  # next write slot (t == rollout_len means full)
 
 
-def rollout_init(example_item, rollout_len: int, num_envs: int, device) -> RolloutState:
-    """``example_item``: a pytree of tensors with per-item shapes and dtypes."""
+def rollout_init(example_item, rollout_len: int, num_envs, device) -> RolloutState:
+    """``example_item``: a pytree of tensors with per-item shapes and dtypes.
+
+    ``num_envs`` is the batch of one step: an int, or a shape such as
+    ``(S, N)`` for seed lanes (storage ``(rollout_len, S, N, ...)``).
+    """
+    batch = (num_envs,) if isinstance(num_envs, int) else tuple(num_envs)
     storage = tree_map(
-        lambda x: torch.zeros(
-            (rollout_len, num_envs, *x.shape), dtype=x.dtype, device=device
-        ),
+        lambda x: torch.zeros((rollout_len, *batch, *x.shape), dtype=x.dtype, device=device),
         example_item,
     )
     return RolloutState(storage=storage, t=0)
 
 
 def rollout_add(state: RolloutState, items) -> RolloutState:
-    """Write one vectorised step (leaves ``(num_envs, ...)``) at the cursor.
+    """Write one vectorised step (leaves ``(*batch, ...)``) at the cursor.
 
     Writes past the end are dropped, as the reference's out-of-bounds
     scatter drops them (PyTorch indexing would raise instead).

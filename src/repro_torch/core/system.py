@@ -1,12 +1,19 @@
-"""The `System` abstraction and the Anakin runner (port of `repro.core.system`).
+"""The `System` abstraction and its runners (port of `repro.core.system`).
 
 A System bundles the executor (``select_actions`` + carry), the trainer
 (``update``) and the dataset (buffer) as plain functions on tensors, as in
-the reference.  `train_anakin` runs every env copy in one batch: act, env
-step and rollout write for all copies per iteration, and the trainer
-update whenever the dataset is ready.  The reference fuses this into one
-``lax.scan`` under ``jit``; here it is a Python loop of batched tensor
-ops, and the ``lax.cond`` update gate is a Python ``if`` on a Python int.
+the reference.  Two runners drive it:
+
+  run_environment_loop — the paper's Block-1 executor-environment loop:
+      one env, python-paced, the faithful baseline;
+  train_anakin — every env copy in one batch: act, env step and rollout
+      write for all copies per iteration, and the trainer update whenever
+      the dataset is ready.  The reference fuses this into one
+      ``lax.scan`` under ``jit``; here it is a Python loop of batched
+      tensor ops, and the ``lax.cond`` update gate is a Python ``if`` on a
+      Python int.  With ``num_seeds`` the runs of several seeds share every
+      op as seed lanes (`repro_torch.lanes`), and with ``eval_every`` the
+      greedy evaluator runs between blocks of iterations.
 """
 from __future__ import annotations
 
@@ -15,11 +22,12 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch import resolve_device
-from repro_torch.core.types import SystemState, TrainState, Transition
+from repro_torch import lanes, resolve_device
+from repro_torch.core.types import EvalMetrics, SystemState, TrainState, Transition
 from repro_torch.envs.api import StepType
 from repro_torch.envs.wrappers import AutoReset, EpisodeStats, replace_reset_keys
 from repro_torch.nn.recurrent import reset_carry
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,8 +41,12 @@ class System:
     * ``select_actions(train, obs, state, carry, generator, training)
       -> (actions, carry, extras)``
     * ``initial_carry(batch_shape, device) -> carry``
-    * ``init_buffer(num_envs, device)``, ``observe(buffer, transition)``,
+    * ``init_buffer(batch_shape, device)``, ``observe(buffer, transition)``,
       ``can_sample(buffer) -> bool``
+
+    ``update`` and ``select_actions`` also take a tuple of lane generators
+    with seed-lane tensors (`repro_torch.lanes`); ``batch_shape`` is then
+    ``(S, N)``.
     """
 
     env: Any
@@ -59,44 +71,122 @@ def _team_return(last_returns):
     return torch.mean(torch.stack(list(last_returns.values())), dim=0)
 
 
+# ------------------------------------------------------ faithful python loop
+
+
+def run_environment_loop(
+    system: System,
+    seed: int,
+    num_episodes: int = 10,
+    training: bool = True,
+    train_state=None,
+    buffer_state=None,
+    device=None,
+):
+    """The paper's Block-1 executor-environment loop: one env, python-paced.
+
+    The env is a batch of one, stepped until its episode's LAST; in
+    ``training`` mode every transition goes to the dataset and the trainer
+    updates whenever it is ready.  Randomness comes from one generator
+    seeded with ``seed``.  Returns ``(train_state, buffer_state,
+    EvalMetrics over the episodes)``: per-agent and team (mean over agents)
+    undiscounted returns, accumulated by the `EpisodeStats` wrapper.
+    """
+    device = resolve_device(device)
+    env = EpisodeStats(system.env)
+    ids = list(system.spec.agent_ids)
+    generator = torch.Generator(device).manual_seed(seed)
+    if train_state is None:
+        train_state = system.init_train(generator)
+    if buffer_state is None:
+        buffer_state = system.init_buffer(1, device)
+
+    team, lengths, agent_returns = [], [], {a: [] for a in ids}
+    for _ in range(num_episodes):
+        env_state, ts = env.reset(1, device, generator)
+        carry = system.initial_carry((1,), device)
+        while int(ts.step_type[0]) != StepType.LAST:
+            obs = ts.observation
+            gs = env.global_state(env_state)
+            with torch.no_grad():
+                actions, carry, extras = system.select_actions(
+                    train_state, obs, gs, carry, generator, training=training
+                )
+            new_env_state, new_ts = env.step(env_state, actions)
+            if training:
+                tr = Transition(
+                    obs=obs,
+                    actions=actions,
+                    rewards=new_ts.reward,
+                    discount=new_ts.discount,
+                    next_obs=new_ts.observation,
+                    state=gs,
+                    next_state=env.global_state(new_env_state),
+                    extras=extras,
+                    step_type=ts.step_type,
+                )
+                buffer_state = system.observe(buffer_state, tr)
+                if system.can_sample(buffer_state):
+                    train_state, buffer_state, _ = system.update(
+                        train_state, buffer_state, generator
+                    )
+            env_state, ts = new_env_state, new_ts
+        for a in ids:
+            agent_returns[a].append(float(env_state.last_returns[a][0]))
+        team.append(float(_team_return(env_state.last_returns)[0]))
+        lengths.append(int(env_state.last_length[0]))
+    metrics = EvalMetrics(
+        episode_return=torch.tensor(team),
+        agent_returns={a: torch.tensor(agent_returns[a]) for a in ids},
+        episode_length=torch.tensor(lengths, dtype=torch.int32),
+    )
+    return train_state, buffer_state, metrics
+
+
+# ------------------------------------------------------------ Anakin runner
+
+
 def _act_phase(system: System, tenv, train, env_state, timestep, carry, generator):
     """One vectorised acting step under ``train``'s policy (no dataset write).
 
+    With lane generators the envs step all ``S * N`` copies as one batch
+    and the system sees them as ``(S, N)``; the metrics are then per lane.
     Returns ``(env_state, timestep, carry, transition, metrics)``.
     """
-    num_envs = timestep.step_type.shape[0]
-    device = timestep.step_type.device
+    S = lanes.count(generator)
     env_state = replace_reset_keys(env_state, generator)
-    obs = timestep.observation
-    gs = tenv.global_state(env_state)
+    obs = lanes.split(timestep.observation, S)
+    gs = lanes.split(tenv.global_state(env_state), S)
     actions, new_carry, extras = system.select_actions(
         train, obs, gs, carry, generator, training=True
     )
-    new_env_state, new_ts = tenv.step(env_state, actions)
+    new_env_state, new_ts = tenv.step(env_state, lanes.merge(actions, S))
+    ts = lanes.split(new_ts, S)
     tr = Transition(
         obs=obs,
         actions=actions,
-        rewards=new_ts.reward,
-        discount=new_ts.discount,
-        next_obs=new_ts.observation,
+        rewards=ts.reward,
+        discount=ts.discount,
+        next_obs=ts.observation,
         state=gs,
-        next_state=tenv.global_state(new_env_state),
+        next_state=lanes.split(tenv.global_state(new_env_state), S),
         extras=extras,
-        step_type=timestep.step_type,
+        step_type=lanes.split(timestep.step_type, S),
     )
     # a FIRST out of step marks an auto-reset boundary: executor carries
     # restart with the new episode
-    done = new_ts.step_type == StepType.FIRST
+    done = ts.step_type == StepType.FIRST
     new_carry = reset_carry(
-        new_carry, done, initial=system.initial_carry((num_envs,), device)
+        new_carry, done, initial=system.initial_carry(done.shape, done.device)
     )
     done_f = done.float()
+    last_returns = lanes.split(new_env_state.last_returns, S)
     metrics = {
-        "reward": torch.mean(torch.stack(list(new_ts.reward.values()))),
-        "done_frac": torch.mean(done_f),
+        "reward": torch.stack(list(ts.reward.values())).mean((0, -1)),
+        "done_frac": done_f.mean(-1),
         # mean return of the episodes that completed this iteration (0 if none)
-        "episode_return": torch.sum(_team_return(new_env_state.last_returns) * done_f)
-        / torch.clamp(torch.sum(done_f), min=1.0),
+        "episode_return": torch.sum(_team_return(last_returns) * done_f, -1)
+        / torch.clamp(torch.sum(done_f, -1), min=1.0),
     }
     return new_env_state, new_ts, new_carry, tr, metrics
 
@@ -113,7 +203,9 @@ def _step_phase(system: System, tenv, st: SystemState):
 def _one_iteration(system: System, tenv, st: SystemState):
     """One vectorised step of every env, then the update if the dataset is ready.
 
-    Returns ``(state, metrics, update_metrics or None)``.
+    With seed lanes the gate is one Python ``if`` for all of them: every
+    lane's rollout cursor moves in step, as the reference's hoisted
+    ``lax.cond`` relies on.  Returns ``(state, metrics, update_metrics or None)``.
     """
     with torch.no_grad():
         st, metrics = _step_phase(system, tenv, st)
@@ -123,54 +215,150 @@ def _one_iteration(system: System, tenv, st: SystemState):
     return st._replace(train=train, buffer=buffer), metrics, upd
 
 
+def seed_generators(seed, num_seeds: int, device) -> tuple:
+    """The lane generators of a ``num_seeds`` run: seeds ``seed, ..., seed + num_seeds - 1``.
+
+    ``seed`` may also be the sequence of the lanes' seeds.  Lane ``s``
+    draws what the single run with its seed draws.
+    """
+    seeds = range(seed, seed + num_seeds) if isinstance(seed, int) else list(seed)
+    if len(seeds) != num_seeds:
+        raise ValueError(f"got {len(seeds)} seeds for num_seeds={num_seeds}")
+    return lanes.generators(seeds, device)
+
+
 def init_system_state(system: System, generator, num_envs: int, train_env=None):
-    """A fresh `SystemState` on ``generator``'s device."""
+    """A fresh `SystemState` on ``generator``'s device.
+
+    ``generator`` is one `torch.Generator`, or a tuple of lane generators
+    (`seed_generators`): then each lane initialises its train state and its
+    envs from its own generator, in the order a single run does.
+    """
     tenv = train_env if train_env is not None else _training_env(system.env)
-    device = generator.device
-    env_state, ts = tenv.reset(num_envs, device, generator)
+    S = lanes.count(generator)
+    device = lanes.device(generator)
+    if S is None:
+        train, batch = system.init_train(generator), (num_envs,)
+    else:
+        train, batch = lanes.stack([system.init_train(g) for g in generator]), (S, num_envs)
+    env_state, ts = tenv.reset(num_envs * (S or 1), device, generator)
     return SystemState(
-        train=system.init_train(generator),
-        buffer=system.init_buffer(num_envs, device),
+        train=train,
+        buffer=system.init_buffer(batch, device),
         env_state=env_state,
         timestep=ts,
-        carry=system.initial_carry((num_envs,), device),
+        carry=system.initial_carry(batch, device),
         key=generator,
     )
 
 
-def make_anakin(system: System, num_iterations: int, num_envs: int, device=None):
+def _eval_seed(generator):
+    """The seed of an interleaved evaluation: one draw from the run's generator(s)."""
+    draw = lambda g: int(torch.randint(2**62, (), generator=g, device=g.device))
+    if isinstance(generator, tuple):
+        return [draw(g) for g in generator]
+    return draw(generator)
+
+
+def make_anakin(
+    system: System,
+    num_iterations: int,
+    num_envs: int,
+    eval_every: int = 0,
+    eval_episodes: int = 32,
+    eval_num_envs=None,
+    num_seeds=None,
+    device=None,
+):
     """Build the Anakin program as a reusable function of ``seed``.
 
     ``program(seed) -> (SystemState, metrics)``; ``metrics`` maps
     ``reward`` / ``done_frac`` / ``episode_return`` to ``(num_iterations,)``
     tensors, and ``loss`` to the ``(num_updates,)`` mean losses of the
-    updates that ran.  Nothing waits on the device inside the loop.
+    updates that ran.  Nothing waits on the device inside the loop, except
+    to draw an evaluation's seed.
+
+    With ``eval_every > 0`` (a divisor of ``num_iterations``) the greedy
+    evaluator (`repro_torch.eval.make_evaluator`, ``eval_episodes``
+    episodes on ``eval_num_envs`` or ``num_envs`` copies) runs after every
+    ``eval_every`` iterations, and the program returns ``(state, metrics,
+    evals)``, the `EvalMetrics` leaves stacked to ``(num_iterations //
+    eval_every, eval_episodes)``.  Each evaluation's seed is one
+    ``torch.randint(2**62)`` draw from the run's generator at that point,
+    so ``repro_torch.eval.evaluate(system, train, that_seed, ...)`` from the
+    same train state reproduces it.
+
+    With ``num_seeds`` the runs of seeds ``seed, ..., seed + num_seeds -
+    1`` (or the sequence ``seed``) go as seed lanes (`seed_generators`):
+    metrics, losses and evals gain a leading ``(num_seeds,)`` axis, as do
+    the state's train state, carry and env leaves (``(S, N, ...)``); the
+    rollout storage stays time-major, ``(T, S, N, ...)``.  Lane ``s`` is
+    the single run with its seed, up to the order of sums.
     """
     if num_iterations < 1:
         raise ValueError(f"num_iterations must be >= 1, got {num_iterations}")
     device = resolve_device(device)
     tenv = _training_env(system.env)
+    eval_fn = None
+    if eval_every > 0:
+        if num_iterations % eval_every:
+            raise ValueError(
+                f"num_iterations ({num_iterations}) must be a multiple of "
+                f"eval_every ({eval_every})"
+            )
+        # local import: the evaluator builds on this module's System
+        from repro_torch.eval.evaluator import make_evaluator
 
-    def program(seed: int):
-        generator = torch.Generator(device).manual_seed(seed)
+        eval_fn = make_evaluator(system, eval_episodes, eval_num_envs or num_envs)
+
+    def program(seed):
+        if num_seeds is None:
+            generator = torch.Generator(device).manual_seed(seed)
+        else:
+            generator = seed_generators(seed, num_seeds, device)
+        S = lanes.count(generator)
         st = init_system_state(system, generator, num_envs, train_env=tenv)
-        per_iter, losses = [], []
-        for _ in range(num_iterations):
+        per_iter, losses, evals = [], [], []
+        for it in range(num_iterations):
             st, metrics, upd = _one_iteration(system, tenv, st)
             per_iter.append(metrics)
             if upd is not None:
                 losses.append(upd["loss"])
-        out = {k: torch.stack([m[k] for m in per_iter]) for k in per_iter[0]}
-        out["loss"] = torch.stack(losses) if losses else torch.zeros(0, device=device)
-        return st, out
+            if eval_fn is not None and (it + 1) % eval_every == 0:
+                evals.append(eval_fn(st.train, _eval_seed(generator)))
+        # per-iteration scalars (or (S,) lane vectors) stacked along a last axis
+        out = {k: torch.stack([m[k] for m in per_iter], -1) for k in per_iter[0]}
+        lead = () if S is None else (S,)
+        out["loss"] = torch.stack(losses, -1) if losses else torch.zeros(*lead, 0, device=device)
+        st = st._replace(env_state=lanes.split(st.env_state, S),
+                         timestep=lanes.split(st.timestep, S))
+        if eval_fn is None:
+            return st, out
+        return st, out, tree_map(lambda *xs: torch.stack(xs, -2), *evals)
 
     return program
 
 
-def train_anakin(system: System, seed: int, num_iterations: int, num_envs: int, device=None):
+def train_anakin(
+    system: System,
+    seed,
+    num_iterations: int,
+    num_envs: int,
+    eval_every: int = 0,
+    eval_episodes: int = 32,
+    eval_num_envs=None,
+    num_seeds=None,
+    device=None,
+):
     """Train for ``num_iterations`` vectorised steps of ``num_envs`` env copies.
 
-    Returns ``(final SystemState, metrics)`` (see `make_anakin`).  ``device``
-    defaults to CUDA and raises when none is present.
+    Returns ``(final SystemState, metrics)``, or ``(state, metrics, evals)``
+    with ``eval_every > 0``; every leaf gains a leading ``(num_seeds,)``
+    axis with ``num_seeds`` (see `make_anakin`).  ``device`` defaults to
+    CUDA and raises when none is present.
     """
-    return make_anakin(system, num_iterations, num_envs, device)(seed)
+    return make_anakin(
+        system, num_iterations, num_envs, eval_every=eval_every,
+        eval_episodes=eval_episodes, eval_num_envs=eval_num_envs,
+        num_seeds=num_seeds, device=device,
+    )(seed)

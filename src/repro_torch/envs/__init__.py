@@ -1,16 +1,64 @@
-"""Batched multi-agent envs and the wrapper stack (port of `repro.envs`)."""
+"""Batched multi-agent envs, the wrapper stack and the registry (port of `repro.envs`).
+
+`REGISTRY` lists the envs ported so far; `make_env` raises `KeyError` for
+any other name, as the reference does for an unknown one.
+"""
 from repro_torch.envs.api import ArraySpec, DiscreteSpec, EnvSpec, StepType, TimeStep
+from repro_torch.envs.lbf import LevelBasedForaging
 from repro_torch.envs.matrix_game import MatrixGame
-from repro_torch.envs.wrappers import AutoReset, EpisodeStats, replace_reset_keys
+from repro_torch.envs.spread import Spread
+from repro_torch.envs.wrappers import (
+    AgentIdObs,
+    AutoReset,
+    ConcatObsState,
+    EpisodeStats,
+    Wrapper,
+    replace_reset_keys,
+)
+
+
+def _gridworld(cls):
+    """Registry factory for the gridworld family: raw dynamics + the standard
+    observation stack (one-hot agent ids, concat-of-observations global state)."""
+
+    def factory(**kwargs):
+        """Build the wrapped gridworld env with the registered stack."""
+        return ConcatObsState(AgentIdObs(cls(**kwargs)))
+
+    factory.__name__ = f"make_{cls.__name__}"
+    factory.__doc__ = f"Wrapped {cls.__name__} (AgentIdObs + ConcatObsState)."
+    return factory
+
+
+REGISTRY = {
+    "matrix_game": MatrixGame,
+    "spread": Spread,
+    "lbf": _gridworld(LevelBasedForaging),
+}
+
+
+def make_env(name: str, **kwargs):
+    """Build a registered environment by name (the launcher's entry)."""
+    if name not in REGISTRY:
+        raise KeyError(f"unknown env {name!r}; registered: {sorted(REGISTRY)}")
+    return REGISTRY[name](**kwargs)
+
 
 __all__ = [
+    "AgentIdObs",
     "ArraySpec",
     "AutoReset",
+    "ConcatObsState",
     "DiscreteSpec",
     "EnvSpec",
     "EpisodeStats",
+    "LevelBasedForaging",
     "MatrixGame",
+    "REGISTRY",
+    "Spread",
     "StepType",
     "TimeStep",
+    "Wrapper",
+    "make_env",
     "replace_reset_keys",
 ]

@@ -1,5 +1,8 @@
-"""Stream wrappers over batched envs (port of `repro.envs.wrappers`).
+"""Observation and stream wrappers over batched envs (port of `repro.envs.wrappers`).
 
+* `AgentIdObs` — append a one-hot agent id to every agent's observation;
+* `ConcatObsState` — global state = the concatenation of every agent's
+  observation (in the registered gridworld stack, the id-augmented ones);
 * `AutoReset` — fused auto-reset: an env that terminates is reset in the
   same `step`, and the returned timestep is the FIRST of the new episode
   carrying the terminal reward and discount (the merged boundary);
@@ -16,7 +19,7 @@ from typing import Any, Dict, NamedTuple
 
 import torch
 
-from repro_torch.envs.api import TimeStep
+from repro_torch.envs.api import ArraySpec, TimeStep
 from repro_torch.tree import tree_map
 
 
@@ -54,6 +57,82 @@ class Wrapper:
     def global_state(self, state):
         """Delegate to the inner env."""
         return self.env.global_state(state)
+
+
+# ------------------------------------------------------ observation wrappers
+
+
+@dataclasses.dataclass(frozen=True)
+class AgentIdObs(Wrapper):
+    """Append a one-hot agent id to every agent's observation.
+
+    Shared-weight policies on homogeneous envs can then still condition on
+    which agent they act for.
+    """
+
+    def spec(self):
+        """The inner spec with the one-hot id appended to each obs spec."""
+        spec = self.env.spec()
+        n = spec.num_agents
+        obs = {
+            a: ArraySpec((spec.observations[a].shape[0] + n,), spec.observations[a].dtype)
+            for a in spec.agent_ids
+        }
+        return dataclasses.replace(spec, observations=obs)
+
+    def __post_init__(self):
+        # the one-hot ids, one copy per device and dtype, made on first use
+        object.__setattr__(self, "_eye_on", {})
+
+    def _augment(self, obs):
+        ids = tuple(self.env.agent_ids)
+        first = obs[ids[0]]
+        key = (first.device, first.dtype)
+        if key not in self._eye_on:
+            self._eye_on[key] = torch.eye(len(ids), dtype=first.dtype, device=first.device)
+        eye = self._eye_on[key]
+        return {
+            a: torch.cat([obs[a], eye[i].expand(*obs[a].shape[:-1], len(ids))], dim=-1)
+            for i, a in enumerate(ids)
+        }
+
+    def _obs(self, state):
+        return self._augment(self.env._obs(state))
+
+    def reset(self, num_envs, device, generator=None):
+        """Reset the inner env; augment observations with agent ids."""
+        state, ts = self.env.reset(num_envs, device, generator)
+        return state, ts._replace(observation=self._augment(ts.observation))
+
+    def step(self, state, actions):
+        """Step the inner env; augment observations with agent ids."""
+        state, ts = self.env.step(state, actions)
+        return state, ts._replace(observation=self._augment(ts.observation))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConcatObsState(Wrapper):
+    """Global state = concatenation of every agent's observation.
+
+    The input centralised critics train on, for envs whose joint
+    observations carry the full state.  Reads the inner env's
+    ``_obs(state)``: under ``ConcatObsState(AgentIdObs(env))`` that is
+    `AgentIdObs._obs`, so the state holds the id-augmented observations.
+    """
+
+    def spec(self):
+        """The inner spec with the concat-of-observations state spec."""
+        spec = self.env.spec()
+        dim = sum(spec.observations[a].shape[0] for a in spec.agent_ids)
+        return dataclasses.replace(spec, state=ArraySpec((dim,)))
+
+    def global_state(self, state):
+        """Every agent's observation, concatenated in agent order: ``(N, sum of dims)``."""
+        obs = self.env._obs(state)
+        return torch.cat([obs[a] for a in tuple(self.env.agent_ids)], dim=-1)
+
+
+# ----------------------------------------------------------- stream wrappers
 
 
 class AutoResetState(NamedTuple):

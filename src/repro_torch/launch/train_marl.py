@@ -1,0 +1,126 @@
+"""MARL system launcher (port of `repro.launch.train_marl`).
+
+    PYTHONPATH=src python -m repro_torch.launch.train_marl --system ippo \\
+        --env spread --runner anakin --iterations 256 --num-envs 8 --device cpu
+
+Builds any (system, env) pair of the port's registries
+(`repro_torch.systems.registry.make_pair`) and trains it with one of two
+runners:
+
+  --runner loop     the paper's Block-1 python environment loop, one env;
+                    ``--iterations`` counts episodes
+  --runner anakin   every env copy in one batch per iteration; with
+                    ``--num-seeds N`` the runs of seeds ``--seed`` ..
+                    ``--seed + N - 1`` go as seed lanes of one batch, and
+                    ``--eval-every`` interleaves the greedy evaluator
+
+It prints the reward over the run, the greedy evaluation return, the wall
+time and the env steps a second.  It runs on CUDA unless ``--device``
+says otherwise, and raises when there is no GPU and no ``--device``.  The
+reference's sharded and async runners and its ``--log-every``,
+``--log-dir``, ``--profile``, ``--save-checkpoint`` and ``--continuous``
+flags are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.system import make_anakin, run_environment_loop
+from repro_torch.envs import REGISTRY as ENVS
+from repro_torch.eval import evaluate
+from repro_torch.systems.registry import REGISTRY as SYSTEMS
+from repro_torch.systems.registry import make_pair
+
+
+def parse_args(argv=None):
+    """The launcher's command line."""
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--system", choices=sorted(SYSTEMS), default="ippo")
+    p.add_argument("--env", choices=sorted(ENVS), default="spread")
+    p.add_argument("--runner", choices=("loop", "anakin"), default="anakin")
+    p.add_argument("--iterations", type=int, default=2000,
+                   help="anakin: iterations of every env copy; loop: episodes")
+    p.add_argument("--num-envs", type=int, default=16)
+    p.add_argument("--num-seeds", type=int, default=0,
+                   help="anakin: train N seeds as lanes of one batch (0 = a single run)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="anakin: run the greedy evaluator every N iterations (0 = once, "
+                        "after training)")
+    p.add_argument("--eval-episodes", type=int, default=32)
+    p.add_argument("--device", default=None, help="default: CUDA, raising without it")
+    return p.parse_args(argv)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(args) -> dict:
+    """Launch one training run as configured; returns what it printed."""
+    device = resolve_device(args.device)
+    env, system = make_pair(args.system, args.env)
+    num_seeds = args.num_seeds if args.num_seeds > 0 else None
+    if args.runner == "loop":
+        if num_seeds is not None or args.eval_every:
+            raise ValueError("--num-seeds and --eval-every are anakin options")
+        _sync(device)
+        t0 = time.perf_counter()
+        train, _, ev = run_environment_loop(system, args.seed, args.iterations, device=device)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        returns = ev.episode_return
+        out = {
+            "episode_return_first": float(returns[:3].mean()),
+            "episode_return_last": float(returns[-3:].mean()),
+            "env_steps": int(ev.episode_length.sum()),
+        }
+    else:
+        program = make_anakin(
+            system, args.iterations, args.num_envs, eval_every=args.eval_every,
+            eval_episodes=args.eval_episodes, num_seeds=num_seeds, device=device,
+        )
+        _sync(device)
+        t0 = time.perf_counter()
+        result = program(args.seed)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        train, metrics = result[0].train, result[1]
+        r = metrics["reward"]
+        k = max(r.shape[-1] // 10, 1)
+        out = {
+            "reward_first10pct": float(r[..., :k].mean()),
+            "reward_last10pct": float(r[..., -k:].mean()),
+            "env_steps": args.iterations * args.num_envs * (num_seeds or 1),
+        }
+        if args.eval_every > 0:
+            ev_returns = result[2].episode_return.mean(-1)  # ([S,] num_evals)
+            print("greedy eval return (team), per eval point: "
+                  f"{[round(float(x), 3) for x in ev_returns.flatten()]}")
+            out["eval_return"] = float(ev_returns[..., -1].mean())
+    if "eval_return" not in out:
+        seeds = None if num_seeds is None else list(range(args.seed, args.seed + num_seeds))
+        ev = evaluate(system, train, args.seed if seeds is None else seeds,
+                      num_episodes=args.eval_episodes, num_envs=args.num_envs,
+                      num_seeds=num_seeds, device=device)
+        out["eval_return"] = float(ev.episode_return.mean())
+    out.update(wall_s=wall, env_steps_per_s=out["env_steps"] / wall)
+    print({k: v for k, v in out.items() if k not in ("wall_s", "env_steps_per_s")})
+    print(f"final greedy eval return (team): {out['eval_return']:.3f}")
+    print(f"wall time: {wall:.2f}s, {out['env_steps_per_s']:.0f} env steps/s "
+          f"({args.system} on {args.env}, runner={args.runner}, device={device})")
+    return out
+
+
+def main(argv=None):
+    """Parse ``argv`` and launch the run."""
+    return run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

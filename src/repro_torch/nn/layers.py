@@ -4,6 +4,11 @@ Each layer is a frozen dataclass with ``init(generator) -> params`` and a
 pure ``apply(params, *inputs)``; params are nested dicts of tensors with
 the JAX pytree's keys and its ``w: (in, out)`` layout (``y = x @ w + b``),
 so weights cross between the packages with no transpose.
+
+Every layer also runs several seed lanes at once (`repro_torch.lanes`):
+params whose leaves lead with a lane axis ``(S, ...)`` apply to inputs
+whose lane axis sits just before the last batch axis, ``(..., S, N, in)``,
+as one batched product per layer (`affine`).
 """
 from __future__ import annotations
 
@@ -13,6 +18,23 @@ from typing import Callable, Sequence
 import torch
 
 from repro_torch.nn import initializers
+
+
+def affine(x, w, b=None):
+    """``x @ w + b``; with lane params ``w: (S, in, out)``, ``b: (S, out)`` per lane.
+
+    Lane inputs are ``(..., S, N, in)``; the result is ``(..., S, N, out)``.
+    """
+    if w.dim() == 2:
+        y = x @ w
+        return y if b is None else y + b
+    lead = x.shape[:-3]
+    if lead:  # (..., S, N, in) -> (S, prod(...) * N, in) for one batched product
+        x = x.movedim(-3, 0).reshape(w.shape[0], -1, x.shape[-1])
+    y = torch.bmm(x, w) if b is None else torch.baddbmm(b[:, None], x, w)
+    if lead:
+        y = y.reshape(w.shape[0], *lead, -1, w.shape[-1]).movedim(0, -3)
+    return y
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,10 +55,7 @@ class Dense:
 
     def apply(self, params, x):
         """Apply the affine map to the trailing dim of ``x``."""
-        y = x @ params["w"]
-        if self.use_bias:
-            y = y + params["b"]
-        return y
+        return affine(x, params["w"], params["b"] if self.use_bias else None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +107,8 @@ class GRUCell:
 
     def apply(self, params, h, x):
         """h: (..., hidden), x: (..., in) -> new h."""
-        gates_x = x @ params["wi"] + params["bi"]
-        gates_h = h @ params["wh"] + params["bh"]
+        gates_x = affine(x, params["wi"], params["bi"])
+        gates_h = affine(h, params["wh"], params["bh"])
         xr, xz, xn = gates_x.chunk(3, dim=-1)
         hr, hz, hn = gates_h.chunk(3, dim=-1)
         r = torch.sigmoid(xr + hr)

@@ -95,7 +95,9 @@ class LinearScannedRNN:
     def unroll(self, params, carry, xs, resets=None):
         """Whole-trajectory unroll through the recurrent-scan kernel."""
         a, b = self._gates(params, xs)
-        hs = linear_recurrent_scan(a, b, carry, resets)
+        # seed-lane params give lane-major products (`nn.layers.affine`);
+        # the scan wants its (T, ..., H) operands laid out time-major
+        hs = linear_recurrent_scan(a.contiguous(), b.contiguous(), carry.contiguous(), resets)
         return hs[-1], hs
 
 

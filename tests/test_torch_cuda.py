@@ -23,7 +23,9 @@ query tiles, a window that starts inside a kv tile; T = 129, V = 255 and
 257 around 256-wide vocab tiles, d and V that are not multiples of 8),
 and a smoke-sized InternLM2 train step on the GPU must launch the flash
 kernel twice a layer (remat runs each layer's forward again) and the
-xent kernel and its combine once.
+xent kernel and its combine once.  A seed-lane (3 lanes) rec-MAPPO and
+IPPO update on the card must match the same update on the CPU at 1e-4,
+rec-MAPPO's with no more scan launches than one lane needs.
 """
 import pytest
 
@@ -119,6 +121,51 @@ def test_short_rec_ippo_run_goes_through_the_kernel(cuda):
     # 2 bootstrap unrolls + 1 epoch x 2 minibatches x 2 agents x 2 nets x (fwd + bwd)
     assert linear_recurrent_scan.launches == 2 + 16
     assert int(st.train.steps) == 1 and bool(torch.isfinite(m["loss"]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rec_mappo", "ippo"])
+def test_seed_lane_update_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
+    from repro_torch.core.buffer import RolloutState
+    from repro_torch.core.system import _step_phase, _training_env, init_system_state
+    from repro_torch.core.system import seed_generators
+    from repro_torch.systems import onpolicy
+    from repro_torch.systems.registry import make_pair
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dict(hidden_sizes=(16, 16), rollout_len=8, epochs=1, num_minibatches=2)
+    if name == "rec_mappo":
+        cfg["recurrent_core"] = "linear"
+    _, system = make_pair(name, "spread", env_kwargs={"horizon": 5}, **cfg)
+    S, N = 3, 4
+    tenv = _training_env(system.env)
+    st = init_system_state(system, seed_generators(0, S, "cpu"), N, tenv)
+    with torch.no_grad():
+        for _ in range(cfg["rollout_len"]):
+            st, _ = _step_phase(system, tenv, st)
+    g = torch.Generator().manual_seed(1)
+    perms = [torch.stack([torch.randperm(n, generator=g) for _ in range(S)]) for n in (N, 8 * N)]
+    results = []
+    for device in ("cpu", cuda):
+        # the same shuffles on both devices: (S, N) env perms, (S, 8 N) row perms
+        env_perm, row_perm = (p.to(device) for p in perms)
+        monkeypatch.setattr(onpolicy, "_env_permutation", lambda n, gen: env_perm)
+        monkeypatch.setattr(onpolicy, "_row_permutation", lambda n, gen: row_perm)
+        move = lambda x: x.to(device)
+        buffer = RolloutState(tree_map(move, st.buffer.storage), st.buffer.t)
+        linear_recurrent_scan.launches = 0
+        train, _, m = system.update(tree_map(move, st.train), buffer,
+                                    seed_generators(0, S, device))
+        results.append((train, m["loss"], linear_recurrent_scan.launches))
+    (cpu, cpu_loss, _), (gpu, gpu_loss, launches) = results
+    assert gpu_loss.shape == (S,)
+    torch.testing.assert_close(gpu_loss.cpu(), cpu_loss, atol=1e-4, rtol=1e-4)
+    for x, y in zip(tree_leaves(gpu.params), tree_leaves(cpu.params), strict=True):
+        torch.testing.assert_close(x.cpu(), y, atol=1e-4, rtol=1e-4)
+    if name == "rec_mappo":
+        # 3 bootstrap unrolls, then per minibatch 3 agents x 2 nets x (fwd + bwd):
+        # the seed lanes fold into the kernel's D axis and add no launch
+        assert launches == 3 + 2 * 12
 
 
 def _scan_inputs(b, S, di, N, dtype, device, seed=0):

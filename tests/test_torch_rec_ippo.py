@@ -210,6 +210,11 @@ def test_import_loads_no_jax_and_no_gpu():
         "import pkgutil, importlib, sys, torch, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        # the MARL slice's modules are among them
+        "new = ('envs.grid', 'envs.spread', 'envs.lbf', 'systems.ippo', 'systems.mappo',\n"
+        "       'systems.registry', 'eval.stats', 'launch.train_marl', 'lanes')\n"
+        "missing = [m for m in new if 'repro_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m in ('jax', 'repro', 'triton')\n"
         "       or m.startswith(('jax.', 'repro.'))]\n"
         "assert not bad, bad\n"
