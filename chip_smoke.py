@@ -104,6 +104,25 @@ headline loop):
 19. the MARL launcher (`repro_torch.launch.train_marl.main`), ippo on lbf
     with 8 seeds, on the card.
 
+The replay family (MADQN-fp, VDN, QMIX, MADDPG, MAD4PG), the seventh
+slice; no kernel lies on its path:
+
+20. train: vdn on spread, qmix on lbf, madqn-fp on matrix_game and mad4pg
+    on continuous spread at the registry's defaults (OffPolicyConfig,
+    MaddpgConfig), 8 seed lanes x 256 envs x 256 iterations with a greedy
+    evaluation of 32 episodes a lane every 128, 3 runs each, and maddpg on
+    continuous spread once: an update every iteration from the one that
+    fills the table to min_replay, losses and eval returns finite, env
+    steps/s (median, min, max);
+21. the same 8 vdn seeds one run after another: the batched/serial ratio;
+22. tests/test_system.py's value milestone for vdn (FAST_CFG on
+    matrix_game, 3,000 iterations x 8 envs): the last 200 iterations' mean
+    reward above the first 200's by 2 and above 3;
+23. slice parity: the first replay update of vdn (spread), qmix (lbf) and
+    mad4pg (continuous spread), 2 seed lanes x 256 envs, on the card and
+    on the CPU with the same sample indices: losses, gradients and the
+    params after it at 1e-4; the params after 8 updates are a reading.
+
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -192,6 +211,14 @@ MARL_REPEATS = 3
 # (T, lanes x 64 envs, H) a minibatch and (T, lanes x 256 envs, H) the bootstrap
 MARL_PATH_SHAPES = [(128, MARL_SEEDS * MARL_ENVS // 4, 64), (128, MARL_SEEDS * MARL_ENVS, 64)]
 SEED_IPPO_FIRST15, SEED_IPPO_LAST15 = 2.281, 4.994  # tests/test_onpolicy.py:18-19
+# the replay family at the registry's defaults (OffPolicyConfig, MaddpgConfig), 8 seed
+# lanes x 256 envs x 256 iterations like the MARL phase; maddpg runs once beside them
+REPLAY_RUNS = [("vdn", "spread"), ("qmix", "lbf"), ("madqn-fp", "matrix_game"),
+               ("mad4pg", "spread")]
+REPLAY_PARITY = [("vdn", "spread"), ("qmix", "lbf"), ("mad4pg", "spread")]
+# tests/test_system.py:13-20, FAST_CFG
+REPLAY_MILESTONE_CFG = dict(buffer_capacity=5_000, min_replay=100, batch_size=32,
+                            eps_decay_steps=2_000, target_update_period=50, learning_rate=1e-3)
 
 
 def _require(cond, msg):
@@ -638,6 +665,193 @@ def marl_launcher():
                             "--num-seeds", str(MARL_SEEDS), "--num-envs", str(MARL_ENVS),
                             "--iterations", str(MARL_ITERATIONS), "--eval-every",
                             str(MARL_EVAL_EVERY)])
+
+
+def _replay_config(name):
+    """The registry's config of a replay system at its defaults."""
+    from repro_torch.systems.registry import REGISTRY
+
+    return REGISTRY[name].config_cls()
+
+
+def replay_train():
+    """This slice's path: the replay family, 8 seeds as lanes of one batch.
+
+    vdn on spread, qmix on lbf, madqn-fp on matrix_game and mad4pg on
+    continuous spread (3 runs each), and maddpg on continuous spread (one
+    run), at the registry's defaults: 256 envs x 8 seeds x 256 iterations
+    with a greedy evaluation of 32 episodes a lane every 128 iterations.
+    Once the table holds ``min_replay`` rows every iteration updates, so
+    each run's update count follows from the fill alone; env steps/s
+    counts the training steps over the whole call's wall, evals included.
+    """
+    from repro_torch.systems.registry import make_pair
+
+    rows = {}
+    for name, env in REPLAY_RUNS + [("maddpg", "spread")]:
+        _, system = make_pair(name, env)
+        cfg = _replay_config(name)
+        walls = []
+        for _ in range(MARL_REPEATS if name != "maddpg" else 1):
+            (state, metrics, evals), wall = _marl_run(system, MARL_SEEDS)
+            walls.append(wall)
+        # the iteration whose rows fill the table to min_replay updates, and every later one
+        ready = -(-cfg.min_replay // MARL_ENVS)  # ceil
+        updates = MARL_ITERATIONS - ready + 1
+        loss = "critic_loss" if name in ("maddpg", "mad4pg") else "loss"
+        _require(state.train.steps == updates, f"{name}: {state.train.steps} updates, "
+                 f"expected {updates}")
+        _require(metrics[loss].shape == (MARL_SEEDS, updates),
+                 f"{name} losses {tuple(metrics[loss].shape)}")
+        _require(evals.episode_return.shape == (MARL_SEEDS, MARL_ITERATIONS // MARL_EVAL_EVERY,
+                                                MARL_EPISODES),
+                 f"{name} eval returns {tuple(evals.episode_return.shape)}")
+        for k, v in [*metrics.items(), ("eval", evals.episode_return)]:
+            _require(bool(torch.isfinite(v).all()), f"{name}: non-finite {k}")
+        filled = min(MARL_ITERATIONS * MARL_ENVS, cfg.buffer_capacity)
+        _require(isinstance(state.buffer.size, int) and state.buffer.size == filled,
+                 f"{name}: replay fill {state.buffer.size}, expected {filled}")
+        steps = MARL_ITERATIONS * MARL_ENVS * MARL_SEEDS
+        rates = sorted(steps / w for w in walls)
+        rows[name] = {
+            "env": env, "walls_s": walls, "env_steps_per_s": rates[len(rates) // 2],
+            "env_steps_per_s_min": rates[0], "env_steps_per_s_max": rates[-1],
+            "updates": updates, "last_loss": metrics[loss][:, -1].mean().item(),
+            "eval_return": evals.episode_return.mean((0, 2)).tolist(), "system": system,
+        }
+    return rows
+
+
+def replay_milestone():
+    """tests/test_system.py's value milestone for vdn (FAST_CFG, 3,000 iterations x 8 envs)."""
+    from repro_torch.core import train_anakin
+    from repro_torch.envs import MatrixGame
+    from repro_torch.systems import OffPolicyConfig, make_vdn
+
+    system = make_vdn(MatrixGame(horizon=10), OffPolicyConfig(**REPLAY_MILESTONE_CFG))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = train_anakin(system, 0, 3_000, 8, device="cuda")
+    r = metrics["reward"].cpu()
+    wall = time.perf_counter() - t0
+    early, late = float(r[:200].mean()), float(r[-200:].mean())
+    _require(late > early + 2.0 and late > 3.0,
+             f"vdn milestone: first 200 iterations {early}, last 200 {late}")
+    return {"early": early, "late": late, "wall_s": wall}
+
+
+def replay_update_parity(name, env, steps=8):
+    """The first replay update of 2 seed lanes x 256 envs on the card and on the CPU.
+
+    The table is filled on the card to ``min_replay`` rows, then both
+    devices run ``steps`` updates from the same state with the same
+    sample indices.  Held at ``SLICE_TOL``: the first update's losses and
+    gradients, and the params after its optimizer step(s).  The params
+    after all ``steps`` updates are a reading (Adam turns gradient
+    components that rounding leaves near zero into steps of about lr).
+    """
+    from repro_torch.core import buffer as table
+    from repro_torch.core.system import _step_phase, _training_env, init_system_state
+    from repro_torch.core.system import seed_generators
+    from repro_torch.systems import maddpg, offpolicy
+    from repro_torch.systems.registry import make_pair
+    from repro_torch.tree import tree_leaves, tree_map
+
+    _, system = make_pair(name, env)
+    cfg = _replay_config(name)
+    module = maddpg if name in ("maddpg", "mad4pg") else offpolicy
+    per_update = 2 if module is maddpg else 1  # the critic's and the actor's step
+    lanes = 2
+    tenv = _training_env(system.env)
+    st = init_system_state(system, seed_generators(0, lanes, "cuda"), MARL_ENVS, tenv)
+    with torch.no_grad():
+        while not system.can_sample(st.buffer):
+            st, _ = _step_phase(system, tenv, st)
+    g = torch.Generator().manual_seed(0)
+    idx = [torch.randint(st.buffer.size, (lanes, cfg.batch_size), generator=g)
+           for _ in range(steps)]
+    hooks = {k: getattr(module, k) for k in ("_value_and_grad", "_apply")}
+    sample_indices = table.sample_indices
+    results = []
+    try:
+        for dev in ("cuda", "cpu"):
+            seen = {"loss_grads": [], "params": []}
+
+            def value_and_grad(*args):
+                out = hooks["_value_and_grad"](*args)
+                seen["loss_grads"].append(out)
+                return out
+
+            def apply(*args):
+                out = hooks["_apply"](*args)
+                seen["params"].append(out[0])
+                return out
+
+            draws = iter(idx)
+            table.sample_indices = lambda s, gen, n, dev=dev: next(draws).to(dev)
+            module._value_and_grad, module._apply = value_and_grad, apply
+            move = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x
+            train = tree_map(move, st.train)
+            buffer = st.buffer._replace(storage=tree_map(move, st.buffer.storage))
+            gens = seed_generators(0, lanes, dev)
+            for _ in range(steps):
+                train, buffer, _ = system.update(train, buffer, gens)
+            first = seen["loss_grads"][:per_update]
+            results.append({"loss": [lg[0] for lg in first],
+                            "grads": [x for lg in first for x in tree_leaves(lg[1])],
+                            "params": [x for p in seen["params"][:per_update]
+                                       for x in tree_leaves(p)],
+                            "update_params": tree_leaves(train.params)})
+    finally:
+        table.sample_indices = sample_indices
+        for k, v in hooks.items():
+            setattr(module, k, v)
+    gpu, cpu = results
+    err = {k: max(_err(x.cpu(), y) for x, y in zip(gpu[k], cpu[k])) for k in gpu}
+    err["steps"] = steps
+    for k in ("loss", "grads"):
+        _require(all(_within(x.cpu(), y, SLICE_TOL) for x, y in zip(gpu[k], cpu[k])),
+                 f"{name}: {k} on the card differs from the CPU by {err[k]}")
+    _require(err["params"] <= SLICE_TOL,
+             f"{name}: params after the first update differ from the CPU by {err['params']}")
+    return err
+
+
+def replay_phase(tag):
+    """Phases 20-23: the replay family's runs, the serial rung, the milestone, the parity."""
+    t0 = time.perf_counter()
+    replay = replay_train()
+    for name, r in replay.items():
+        print(
+            f"train (replay): {name} on {r['env']}, {MARL_SEEDS} seeds x {MARL_ENVS} envs x "
+            f"{MARL_ITERATIONS} iterations, greedy eval of {MARL_EPISODES} episodes a lane every "
+            f"{MARL_EVAL_EVERY}: {r['env_steps_per_s']:.0f} env steps/s median of "
+            f"{len(r['walls_s'])} (min {r['env_steps_per_s_min']:.0f}, max "
+            f"{r['env_steps_per_s_max']:.0f}), walls {[round(w, 3) for w in r['walls_s']]} s; "
+            f"{r['updates']} updates a lane, last loss {r['last_loss']:.4f}; eval returns "
+            f"{[round(x, 4) for x in r['eval_return']]} {tag}"
+        )
+    serial = marl_serial(replay["vdn"]["system"], statistics.median(replay["vdn"]["walls_s"]))
+    print(
+        f"train (replay, serial): vdn on spread, seeds 0-{MARL_SEEDS - 1} one run after "
+        f"another: walls {[round(w, 3) for w in serial['walls_s']]} s = "
+        f"{serial['env_steps_per_s']:.0f} env steps/s; batched over serial "
+        f"{serial['batched_over_serial']:.2f}x {tag}"
+    )
+    del replay
+    milestone = replay_milestone()
+    print(
+        f"milestone: vdn matrix_game (tests/test_system.py FAST_CFG), 3000 iterations x 8 envs: "
+        f"mean reward first 200 iterations {milestone['early']:.3f}, last 200 "
+        f"{milestone['late']:.3f} (> first + 2 and > 3) in {milestone['wall_s']:.1f} s {tag}"
+    )
+    for name, env in REPLAY_PARITY:
+        e = replay_update_parity(name, env)
+        print(f"slice parity: {name} on {env}, the first replay update of 2 seed lanes x "
+              f"{MARL_ENVS} envs on the card vs the CPU: loss {e['loss']:.3e}, grads "
+              f"{e['grads']:.3e}, params after it {e['params']:.3e} (tol {SLICE_TOL}); after "
+              f"{e['steps']} updates params {e['update_params']:.3e} (a reading)")
+    print(f"slice 7 (replay) in {time.perf_counter() - t0:.1f} s")
 
 
 def _scan_inputs(b, S, di, N, dtype, seed):
@@ -1138,6 +1352,9 @@ def main():
     rec_mappo_launches = marl["rec_mappo"]["launches"]
     del marl, batched
     print(f"slice 6 (marl) in {time.perf_counter() - t0:.1f} s")
+
+    # ---- slice 7: the replay family (no kernel on this path)
+    replay_phase(tag)
 
     # ---- slice 2: Falcon-Mamba-7B greedy serving
     scan_worst = scan_parity(sops, sref)

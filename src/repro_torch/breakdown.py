@@ -1,21 +1,33 @@
 """Where the time of a MARL training path goes on a CUDA GPU.
 
     PYTHONPATH=src python -m repro_torch.breakdown [--num-envs 256] \\
-        [--system rec_ippo] [--env matrix_game] [--num-seeds 0]
+        [--system rec_ippo] [--env matrix_game] [--num-seeds 0] [--device cuda]
 
-Builds ``--system`` on ``--env`` from the registries at PPOConfig's
+Builds ``--system`` on ``--env`` from the registries at its config's
 defaults (rec-IPPO with the linear core on matrix_game unless told
 otherwise; a recurrent system always gets the linear core), with
-``--num-seeds`` seed lanes if asked.  It runs one rollout and update to
-warm up (kernel build, cuBLAS handles, the caching allocator), then times
-one more rollout (the acting iterations) and its update with the host
-clock around synchronised work.  A third rollout and update run under
-`torch.profiler`, which gives the device's busy time per phase (the sum
-of its kernels' times), its idle share, the kernel launches per phase and
-the kernels that take the most device time.  For the recurrent-scan
+``--num-seeds`` seed lanes if asked.
+
+A rollout system (the PPO family) runs one rollout and update to warm up
+(kernel build, cuBLAS handles, the caching allocator), then times one
+more rollout (the acting iterations) and its update with the host clock
+around synchronised work.  A replay system (the off-policy family)
+updates after every iteration once its table holds ``min_replay`` rows:
+it fills the table, warms up for `REPLAY_ITERATIONS` iterations, then
+times that many iterations whole, and that many acting steps and that
+many updates apart.  Then the acting phase and the update phase run again
+under `torch.profiler`, which gives the device's busy time per phase (the
+sum of its kernels' times), its idle share, the kernel launches per phase
+and the kernels that take the most device time.  For the recurrent-scan
 kernel it sets the profiler's count beside the wrapper's own launch
 counter and beside the trace's kernel events grouped by grid size (one
-grid per unroll width).  Prints one JSON object.
+grid per unroll width).  Last, one acting iteration and one update run
+under a dispatch counter: the tensor-making aten ops each dispatches
+(views left out).  It exists to count a path's device ops without the
+card, where a prediction of the card's numbers starts: ``--device cpu``
+runs all of it on the CPU, where only these counts and the host times
+mean anything (on the card the profiler's kernels per phase are
+1.04-1.12 times the count).  Prints one JSON object.
 """
 from __future__ import annotations
 
@@ -29,9 +41,12 @@ import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import resolve_device
+from repro_torch.core.buffer import BufferState
 from repro_torch.core.system import (
+    _one_iteration,
     _step_phase,
     _training_env,
     init_system_state,
@@ -43,6 +58,7 @@ from repro_torch.systems.registry import REGISTRY as SYSTEMS
 from repro_torch.systems.registry import make_pair
 
 SCAN_KERNEL = "linear_scan_kernel"
+REPLAY_ITERATIONS = 64  # a replay system's iterations warmed up, then timed, then profiled
 
 def _rollout(system, tenv, st, steps):
     with torch.no_grad():
@@ -51,17 +67,53 @@ def _rollout(system, tenv, st, steps):
     return st
 
 
-def _update(system, st):
-    train, buffer, _ = system.update(st.train, st.buffer, st.key)
-    return st._replace(train=train, buffer=buffer)
+def _update(system, st, count=1):
+    for _ in range(count):
+        train, buffer, _ = system.update(st.train, st.buffer, st.key)
+        st = st._replace(train=train, buffer=buffer)
+    return st
+
+
+def _iterations(system, tenv, st, count):
+    """``count`` whole iterations: act, write the table, update once it is ready."""
+    for _ in range(count):
+        st, _, _ = _one_iteration(system, tenv, st)
+    return st
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def _timed(fn, *args):
-    torch.cuda.synchronize()
+    _sync()
     t0 = time.perf_counter()
     out = fn(*args)
-    torch.cuda.synchronize()
+    _sync()
     return out, time.perf_counter() - t0
+
+
+class _OpCounter(TorchDispatchMode):
+    """Counts the aten ops dispatched that make a tensor (views left out)."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        made = out if isinstance(out, (tuple, list)) else (out,)
+        if not func.is_view and any(isinstance(x, torch.Tensor) for x in made):
+            self.count += 1
+        return out
+
+
+def _dispatched_ops(fn, *args):
+    """``fn(*args)`` under `_OpCounter`: its output and the ops it dispatched."""
+    with _OpCounter() as counter:
+        out = fn(*args)
+    return out, counter.count
 
 
 def _trace_kernels(prof):
@@ -126,23 +178,8 @@ def _device_summary(prof, wall_s, *names):
     return summary
 
 
-def main(argv=None):
-    """Run the breakdown and print it as JSON."""
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--num-envs", type=int, default=256)
-    parser.add_argument("--system", choices=sorted(SYSTEMS), default="rec_ippo")
-    parser.add_argument("--env", choices=sorted(ENVS), default="matrix_game")
-    parser.add_argument("--num-seeds", type=int, default=0, help="seed lanes (0: one run)")
-    args = parser.parse_args(argv)
-    device = resolve_device()
-    overrides = {"recurrent_core": "linear"} if args.system.startswith("rec_") else {}
-    _, system = make_pair(args.system, args.env, **overrides)
-    tenv = _training_env(system.env)
-    steps = SYSTEMS[args.system].config_cls(**overrides).rollout_len
-    lanes = args.num_seeds or None
-    generator = (torch.Generator(device).manual_seed(0) if lanes is None
-                 else seed_generators(0, lanes, device))
-    st, init_s = _timed(init_system_state, system, generator, args.num_envs, tenv)
+def _rollout_breakdown(system, tenv, st, steps, env_steps):
+    """A rollout system: warm-up rollout and update, a timed one, a profiled one."""
     st, warm_act_s = _timed(_rollout, system, tenv, st, steps)
     st, warm_update_s = _timed(_update, system, st)
     st, act_s = _timed(_rollout, system, tenv, st, steps)
@@ -150,10 +187,87 @@ def main(argv=None):
     phases = {}
     st, phases["act"] = _profiled(_rollout, system, tenv, st, steps)
     st, phases["update"] = _profiled(_update, system, st)
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    return {
+        "rollout_len": steps,
+        "warmup": {"act_s": warm_act_s, "update_s": warm_update_s},
+        "steady": {
+            "act_s": act_s,
+            "act_ms_per_iteration": act_s / steps * 1e3,
+            "update_s": update_s,
+            "env_steps_per_s": env_steps * steps / (act_s + update_s),
+        },
+        "profiled": phases,
+        "state": st,
+    }
+
+
+def _replay_breakdown(system, tenv, st, count, env_steps):
+    """A replay system: fill, warm up, time whole iterations and each phase, profile each phase."""
+    fill_iterations = 0
+    while not system.can_sample(st.buffer):
+        st, _, _ = _one_iteration(system, tenv, st)
+        fill_iterations += 1
+    st, warm_s = _timed(_iterations, system, tenv, st, count)
+    st, iterations_s = _timed(_iterations, system, tenv, st, count)
+    st, act_s = _timed(_rollout, system, tenv, st, count)
+    st, update_s = _timed(_update, system, st, count)
+    phases = {}
+    st, phases["act"] = _profiled(_rollout, system, tenv, st, count)
+    st, phases["update"] = _profiled(_update, system, st, count)
+    for p in phases.values():
+        p["kernel_launches_per_step"] = p["kernel_launches"] / count
+        p["device_busy_ms_per_step"] = p["device_busy_s"] / count * 1e3
+        p["wall_ms_per_step"] = p["wall_s"] / count * 1e3
+    return {
+        "iterations": count,
+        "fill_iterations": fill_iterations,
+        "warmup": {"iterations_s": warm_s},
+        "steady": {
+            "iterations_s": iterations_s,
+            "iteration_ms": iterations_s / count * 1e3,
+            "act_ms_per_step": act_s / count * 1e3,
+            "update_ms_per_update": update_s / count * 1e3,
+            "env_steps_per_s": env_steps * count / iterations_s,
+        },
+        "profiled": phases,
+        "state": st,
+    }
+
+
+def main(argv=None):
+    """Run the breakdown and print it as JSON."""
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--num-envs", type=int, default=256)
+    parser.add_argument("--system", choices=sorted(SYSTEMS), default="rec_ippo")
+    parser.add_argument("--env", choices=sorted(ENVS), default="matrix_game")
+    parser.add_argument("--num-seeds", type=int, default=0, help="seed lanes (0: one run)")
+    parser.add_argument("--device", default=None, help="default: CUDA, raising without it")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+    overrides = {"recurrent_core": "linear"} if args.system.startswith("rec_") else {}
+    _, system = make_pair(args.system, args.env, **overrides)
+    tenv = _training_env(system.env)
+    lanes = args.num_seeds or None
+    generator = (torch.Generator(device).manual_seed(0) if lanes is None
+                 else seed_generators(0, lanes, device))
+    st, init_s = _timed(init_system_state, system, generator, args.num_envs, tenv)
+    env_steps = args.num_envs * (lanes or 1)
+    if isinstance(st.buffer, BufferState):
+        out = _replay_breakdown(system, tenv, st, REPLAY_ITERATIONS, env_steps)
+    else:
+        steps = SYSTEMS[args.system].config_cls(**overrides).rollout_len
+        out = _rollout_breakdown(system, tenv, st, steps, env_steps)
+    phases = out["profiled"]
+    st = out.pop("state")
+    st, act_ops = _dispatched_ops(_rollout, system, tenv, st, 1)
+    st, update_ops = _dispatched_ops(_update, system, st)
+    out["dispatched_ops"] = {"act_iteration": act_ops, "update": update_ops}
+    gpu = "not measured (no CUDA device)"
+    if device.type == "cuda":
+        gpu = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
     print(json.dumps({
         "gpu": gpu,
         "torch": torch.__version__,
@@ -161,19 +275,11 @@ def main(argv=None):
         "env": args.env,
         "num_seeds": args.num_seeds,
         "num_envs": args.num_envs,
-        "rollout_len": steps,
         "init_s": init_s,
-        "warmup": {"act_s": warm_act_s, "update_s": warm_update_s},
-        "steady": {
-            "act_s": act_s,
-            "act_ms_per_iteration": act_s / steps * 1e3,
-            "update_s": update_s,
-            "env_steps_per_s": args.num_envs * (lanes or 1) * steps / (act_s + update_s),
-        },
-        "profiled": phases,
-        # a rollout and its update together, as one training cycle runs them
+        **out,
+        # the acting phase and the update phase together, as training runs them
         "device_idle_share": 1 - sum(p["device_busy_s"] for p in phases.values())
-        / sum(p["wall_s"] for p in phases.values()),
+        / sum(p["wall_s"] for p in phases.values()) if device.type == "cuda" else None,
     }, indent=1))
 
 

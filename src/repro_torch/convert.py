@@ -12,6 +12,14 @@ port keep their type on the way back.  Both packages store ``w`` as
 16-bit patterns: numpy has no bfloat16 of its own, and JAX hands them over
 as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses.
 
+`replay_train_from_jax` / `replay_train_to_jax` carry the `TrainState` of
+the replay family (both builders: Q nets and mixer, or actor and critic
+dicts; target params; the ``chain(clip, adamw)`` state, one a group for
+MADDPG), whose update count is a Python int in the port.
+`buffer_from_jax` / `buffer_to_jax` carry a replay table, whose cursors
+are Python ints in the port too.  Seed lanes (the reference's vmapped
+states) cross with their leading lane axis.
+
 `lm_params_from_jax` / `lm_params_to_jax` carry a language model (dense or
 Mamba1): the JAX package stacks its layers along a leading L axis, the port
 keeps one module per layer.  `lm_opt_state_from_jax` / `lm_opt_state_to_jax`
@@ -26,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.buffer import BufferState
 from repro_torch.core.types import Carry, EvalMetrics, SystemState, TrainState, Transition
 from repro_torch.envs.api import TimeStep
 from repro_torch.envs.lbf import LbfState
@@ -103,6 +112,43 @@ def reset_from_jax(reset, device="cpu"):
     if len(sizes) != 1 or None in sizes:
         raise ValueError(f"a vmap-ed reset leads every leaf with one env axis; got {sizes}")
     return state, timestep
+
+
+def _host_count(x) -> int:
+    """A JAX count (scalar, or one a lane, all equal) -> one Python int."""
+    arr = np.asarray(x)
+    if arr.size == 0 or (arr != arr.flat[0]).any():
+        raise ValueError(f"expected one count, equal in every lane; got {arr}")
+    return int(arr.flat[0])
+
+
+def _jax_count(n: int, lanes):
+    """A Python int -> the reference's int32 count (``(lanes,)`` with seed lanes)."""
+    return np.full(() if lanes is None else (lanes,), n, np.int32)
+
+
+def replay_train_from_jax(train, device="cpu"):
+    """A replay-family JAX `TrainState` -> the port's (``steps`` a Python int)."""
+    return params_from_jax(train._replace(steps=()), device)._replace(
+        steps=_host_count(train.steps))
+
+
+def replay_train_to_jax(train, lanes=None):
+    """The port's replay-family `TrainState` -> numpy arrays (``steps`` int32, one a lane)."""
+    return params_to_jax(train._replace(steps=()))._replace(steps=_jax_count(train.steps, lanes))
+
+
+def buffer_from_jax(state, device="cpu") -> BufferState:
+    """A JAX replay table (``BufferState``; vmapped over lanes or not) -> the port's."""
+    lanes = None if np.ndim(state.size) == 0 else int(np.shape(state.size)[0])
+    return BufferState(params_from_jax(state.storage, device), _host_count(state.insert_pos),
+                       _host_count(state.size), lanes)
+
+
+def buffer_to_jax(state: BufferState):
+    """The port's replay table -> the reference's fields as numpy arrays."""
+    return BufferState(params_to_jax(state.storage), _jax_count(state.insert_pos, state.lanes),
+                       _jax_count(state.size, state.lanes))
 
 
 def _unstack_layers(tree, num_layers):

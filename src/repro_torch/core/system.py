@@ -47,6 +47,13 @@ class System:
     ``update`` and ``select_actions`` also take a tuple of lane generators
     with seed-lane tensors (`repro_torch.lanes`); ``batch_shape`` is then
     ``(S, N)``.
+
+    The dataset is a replay table (`repro_torch.core.buffer.BufferState`:
+    ``can_sample`` gates on its fill and ``update`` samples it, leaving it
+    as it is) or a rollout (``can_sample`` fires when the rollout is
+    complete and ``update`` consumes and resets it).  Each ready iteration
+    runs ``updates_per_step`` updates.  ``action_space`` is the action
+    regime the algorithm supports, ``"discrete"`` or ``"continuous"``.
     """
 
     env: Any
@@ -58,7 +65,9 @@ class System:
     init_buffer: Callable
     observe: Callable
     can_sample: Callable
+    updates_per_step: int = 1
     name: str = "system"
+    action_space: str = "discrete"
 
 
 def _training_env(env):
@@ -201,17 +210,20 @@ def _step_phase(system: System, tenv, st: SystemState):
 
 
 def _one_iteration(system: System, tenv, st: SystemState):
-    """One vectorised step of every env, then the update if the dataset is ready.
+    """One vectorised step of every env, then ``updates_per_step`` updates if the dataset is ready.
 
     With seed lanes the gate is one Python ``if`` for all of them: every
-    lane's rollout cursor moves in step, as the reference's hoisted
-    ``lax.cond`` relies on.  Returns ``(state, metrics, update_metrics or None)``.
+    lane's rollout cursor or replay fill moves in step, as the reference's
+    hoisted ``lax.cond`` relies on.  Returns ``(state, metrics, the last
+    update's metrics or None)``.
     """
     with torch.no_grad():
         st, metrics = _step_phase(system, tenv, st)
     if not system.can_sample(st.buffer):
         return st, metrics, None
-    train, buffer, upd = system.update(st.train, st.buffer, st.key)
+    train, buffer = st.train, st.buffer
+    for _ in range(system.updates_per_step):
+        train, buffer, upd = system.update(train, buffer, st.key)
     return st._replace(train=train, buffer=buffer), metrics, upd
 
 
@@ -274,8 +286,10 @@ def make_anakin(
 
     ``program(seed) -> (SystemState, metrics)``; ``metrics`` maps
     ``reward`` / ``done_frac`` / ``episode_return`` to ``(num_iterations,)``
-    tensors, and ``loss`` to the ``(num_updates,)`` mean losses of the
-    updates that ran.  Nothing waits on the device inside the loop, except
+    tensors, and each tensor the update reports (``loss``; MADDPG's
+    ``critic_loss`` and ``actor_loss``) to its ``(num_updates,)`` values
+    over the ready iterations (the last update of each), or an empty
+    ``loss`` when none ran.  Nothing waits on the device inside the loop, except
     to draw an evaluation's seed.
 
     With ``eval_every > 0`` (a divisor of ``num_iterations``) the greedy
@@ -318,18 +332,21 @@ def make_anakin(
             generator = seed_generators(seed, num_seeds, device)
         S = lanes.count(generator)
         st = init_system_state(system, generator, num_envs, train_env=tenv)
-        per_iter, losses, evals = [], [], []
+        per_iter, updates, evals = [], [], []
         for it in range(num_iterations):
             st, metrics, upd = _one_iteration(system, tenv, st)
             per_iter.append(metrics)
             if upd is not None:
-                losses.append(upd["loss"])
+                updates.append({k: v for k, v in upd.items() if isinstance(v, torch.Tensor)})
             if eval_fn is not None and (it + 1) % eval_every == 0:
                 evals.append(eval_fn(st.train, _eval_seed(generator)))
         # per-iteration scalars (or (S,) lane vectors) stacked along a last axis
         out = {k: torch.stack([m[k] for m in per_iter], -1) for k in per_iter[0]}
         lead = () if S is None else (S,)
-        out["loss"] = torch.stack(losses, -1) if losses else torch.zeros(*lead, 0, device=device)
+        if updates:
+            out.update({k: torch.stack([u[k] for u in updates], -1) for k in updates[0]})
+        else:
+            out["loss"] = torch.zeros(*lead, 0, device=device)
         st = st._replace(env_state=lanes.split(st.env_state, S),
                          timestep=lanes.split(st.timestep, S))
         if eval_fn is None:

@@ -90,9 +90,11 @@ class LevelBasedForaging:
             own_lvl = (state.levels[:, i].float() / self.max_level)[:, None]
             food_rel = ((state.food_pos - own_pos[:, None]).float() / scale).reshape(n, -1)
             # the other agents in their order, as the reference's jnp.delete
-            others = [j for j in range(self.num_agents) if j != i]
-            rel = ((state.pos[:, others] - own_pos[:, None]).float() / scale).reshape(n, -1)
-            other_lvl = state.levels[:, others].float() / self.max_level
+            # (two slices: a list index would be copied to the device, a wait)
+            other_pos = torch.cat([state.pos[:, :i], state.pos[:, i + 1 :]], dim=1)
+            rel = ((other_pos - own_pos[:, None]).float() / scale).reshape(n, -1)
+            other_lvl = torch.cat([state.levels[:, :i], state.levels[:, i + 1 :]], dim=1)
+            other_lvl = other_lvl.float() / self.max_level
             out[a] = torch.cat(
                 [own, own_lvl, food_rel, food_lvl, food_active, rel, other_lvl], dim=-1
             )

@@ -77,8 +77,9 @@ class Spread:
             own = state.pos[:, i]
             rel_lm = (state.landmarks - own[:, None]).reshape(n, -1)
             # the other agents in their order, as the reference's jnp.delete
-            others = [j for j in range(self.num_agents) if j != i]
-            rel_ag = (state.pos[:, others] - own[:, None]).reshape(n, -1)
+            # (two slices: a list index would be copied to the device, a wait)
+            others = torch.cat([state.pos[:, :i], state.pos[:, i + 1 :]], dim=1)
+            rel_ag = (others - own[:, None]).reshape(n, -1)
             out[a] = torch.cat([own, state.vel[:, i], rel_lm, rel_ag], dim=-1)
         return out
 

@@ -30,10 +30,10 @@ from repro_torch.tree import tree_leaves
 
 
 def _as_train_state(params_or_train) -> TrainState:
-    """Accept a full TrainState or bare params."""
+    """Accept a full TrainState or bare params (then wrapped with update count 0)."""
     if isinstance(params_or_train, TrainState):
         return params_or_train
-    return TrainState(params_or_train, params_or_train, None, None)
+    return TrainState(params_or_train, params_or_train, None, 0)
 
 
 def _episode_batch(system, train: TrainState, generator, num_envs: int, horizon: int):

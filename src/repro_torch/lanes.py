@@ -42,20 +42,37 @@ def generators(seeds, device) -> tuple:
     return tuple(torch.Generator(device).manual_seed(int(s)) for s in seeds)
 
 
+def _draw(fn, generator, shape):
+    """``fn(shape, generator)``, or with lane generators one draw of ``shape[0] // S`` rows a lane."""
+    lanes = count(generator)
+    if lanes is None:
+        return fn(shape, generator)
+    if shape[0] % lanes:
+        raise ValueError(f"{shape[0]} rows do not split into {lanes} lanes")
+    rows = (shape[0] // lanes, *shape[1:])
+    return torch.cat([fn(rows, g) for g in generator])
+
+
 def rand(generator, shape, device):
     """Uniform [0, 1) draws of ``shape``.
 
     With a tuple of lane generators, ``shape[0]`` splits evenly into the
     lanes, and each lane's rows come from its own generator: the numbers
-    that lane's single run draws for its ``shape[0] // S`` rows.
+    that lane's single run draws for its ``shape[0] // S`` rows.  `randn`
+    and `randint` split the same way.
     """
-    lanes = count(generator)
-    if lanes is None:
-        return torch.rand(shape, generator=generator, device=device)
-    if shape[0] % lanes:
-        raise ValueError(f"{shape[0]} rows do not split into {lanes} lanes")
-    rows = (shape[0] // lanes, *shape[1:])
-    return torch.cat([torch.rand(rows, generator=g, device=device) for g in generator])
+    return _draw(lambda s, g: torch.rand(s, generator=g, device=device), generator, shape)
+
+
+def randn(generator, shape, device):
+    """Standard normal draws of ``shape`` (lanes as in `rand`)."""
+    return _draw(lambda s, g: torch.randn(s, generator=g, device=device), generator, shape)
+
+
+def randint(generator, high: int, shape, device):
+    """Uniform integers in ``[0, high)`` of ``shape`` (int64; lanes as in `rand`)."""
+    return _draw(lambda s, g: torch.randint(high, s, generator=g, device=device), generator,
+                 shape)
 
 
 def randperm(n: int, generator):
@@ -87,5 +104,18 @@ def merge(tree, lanes):
 
 
 def stack(trees):
-    """Per-lane trees -> one tree whose leaves lead with the lane axis."""
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+    """Per-lane trees -> one tree whose leaves lead with the lane axis.
+
+    A leaf that is not a tensor (a host-side count such as the replay
+    family's ``TrainState.steps``) is the same in every lane and stays
+    one value.
+    """
+
+    def one(*xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        if any(x != xs[0] for x in xs):
+            raise ValueError(f"host-side leaves differ between lanes: {xs}")
+        return xs[0]
+
+    return tree_map(one, *trees)

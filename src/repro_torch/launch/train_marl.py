@@ -18,8 +18,10 @@ It prints the reward over the run, the greedy evaluation return, the wall
 time and the env steps a second.  It runs on CUDA unless ``--device``
 says otherwise, and raises when there is no GPU and no ``--device``.  The
 reference's sharded and async runners and its ``--log-every``,
-``--log-dir``, ``--profile``, ``--save-checkpoint`` and ``--continuous``
-flags are not ported yet.
+``--log-dir``, ``--profile`` and ``--save-checkpoint`` flags are not
+ported yet.  ``--continuous`` forces the env's continuous-action mode;
+a continuous-control system (``maddpg``, ``mad4pg``) turns it on by
+itself.
 """
 from __future__ import annotations
 
@@ -47,6 +49,9 @@ def parse_args(argv=None):
     p.add_argument("--num-envs", type=int, default=16)
     p.add_argument("--num-seeds", type=int, default=0,
                    help="anakin: train N seeds as lanes of one batch (0 = a single run)")
+    p.add_argument("--continuous", action="store_true",
+                   help="force the env's continuous-action mode (spec-checked; continuous "
+                        "systems enable it automatically)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--eval-every", type=int, default=0,
                    help="anakin: run the greedy evaluator every N iterations (0 = once, "
@@ -64,7 +69,8 @@ def _sync(device):
 def run(args) -> dict:
     """Launch one training run as configured; returns what it printed."""
     device = resolve_device(args.device)
-    env, system = make_pair(args.system, args.env)
+    env_kwargs = {"continuous": True} if args.continuous else None
+    env, system = make_pair(args.system, args.env, env_kwargs=env_kwargs)
     num_seeds = args.num_seeds if args.num_seeds > 0 else None
     if args.runner == "loop":
         if num_seeds is not None or args.eval_every:

@@ -1,4 +1,7 @@
 """MARL systems as `System` instances (port of `repro.systems`)."""
+from repro_torch.systems.maddpg import MaddpgConfig, make_mad4pg, make_maddpg
+from repro_torch.systems.madqn import make_madqn
+from repro_torch.systems.offpolicy import OffPolicyConfig, make_offpolicy_system
 from repro_torch.systems.onpolicy import (
     PPOConfig,
     make_ippo,
@@ -6,5 +9,21 @@ from repro_torch.systems.onpolicy import (
     make_rec_ippo,
     make_rec_mappo,
 )
+from repro_torch.systems.qmix import make_qmix
+from repro_torch.systems.vdn import make_vdn
 
-__all__ = ["PPOConfig", "make_ippo", "make_mappo", "make_rec_ippo", "make_rec_mappo"]
+__all__ = [
+    "MaddpgConfig",
+    "OffPolicyConfig",
+    "PPOConfig",
+    "make_ippo",
+    "make_mad4pg",
+    "make_maddpg",
+    "make_madqn",
+    "make_mappo",
+    "make_offpolicy_system",
+    "make_qmix",
+    "make_rec_ippo",
+    "make_rec_mappo",
+    "make_vdn",
+]

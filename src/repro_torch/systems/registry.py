@@ -2,9 +2,10 @@
 
 Port of `repro.systems.registry`: a name -> `SystemEntry` table plus
 ``make_system(name, env, **overrides)`` and ``make_pair(system, env)``, so
-the launcher and user code build every system the same way.  Every system
-ported so far takes discrete actions; the env's spec is checked against
-that, not its name.
+the launcher and user code build every system the same way.  Each entry
+declares the action regime its algorithm supports, and the env's spec is
+checked against that, not its name; ``make_pair`` turns on an env's
+continuous mode when a continuous-control system asks for it.
 
 `REGISTRY` lists the systems ported so far, and the env registry the envs
 ported so far.  ``compatibility(system, env)`` answers whether a (system,
@@ -20,6 +21,9 @@ from typing import Any, Callable, Dict, Optional
 
 from repro_torch.envs import REGISTRY as ENV_REGISTRY
 from repro_torch.envs.api import DiscreteSpec, EnvSpec
+from repro_torch.systems.maddpg import MaddpgConfig, make_mad4pg, make_maddpg
+from repro_torch.systems.madqn import make_madqn
+from repro_torch.systems.offpolicy import OffPolicyConfig
 from repro_torch.systems.onpolicy import (
     PPOConfig,
     make_ippo,
@@ -27,6 +31,8 @@ from repro_torch.systems.onpolicy import (
     make_rec_ippo,
     make_rec_mappo,
 )
+from repro_torch.systems.qmix import make_qmix
+from repro_torch.systems.vdn import make_vdn
 
 # The reference's registries, for "not ported" reasons (repro.systems.REGISTRY
 # and repro.envs.REGISTRY; copied here so the port imports nothing of it).
@@ -42,14 +48,43 @@ REFERENCE_ENVS = (
 
 @dataclasses.dataclass(frozen=True)
 class SystemEntry:
-    """Registry row: how to build a system."""
+    """Registry row: how to build a system, and the action regime it supports."""
 
     factory: Callable[[Any, Any], Any]  # (env, cfg) -> System
     config_cls: type
+    action_space: str = "discrete"  # "discrete" | "continuous"
     description: str = ""
 
 
+def _with(factory, **patch):
+    return lambda env, cfg: factory(env, dataclasses.replace(cfg, **patch))
+
+
 REGISTRY: Dict[str, SystemEntry] = {
+    "madqn": SystemEntry(
+        make_madqn, OffPolicyConfig,
+        description="independent double-DQN learners",
+    ),
+    "madqn-fp": SystemEntry(
+        _with(make_madqn, fingerprint=True), OffPolicyConfig,
+        description="MADQN + policy-fingerprint replay stabilisation",
+    ),
+    "vdn": SystemEntry(
+        make_vdn, OffPolicyConfig,
+        description="value decomposition (additive mixing)",
+    ),
+    "qmix": SystemEntry(
+        make_qmix, OffPolicyConfig,
+        description="monotonic hypernetwork mixing",
+    ),
+    "maddpg": SystemEntry(
+        make_maddpg, MaddpgConfig, action_space="continuous",
+        description="centralised-critic DDPG (continuous control)",
+    ),
+    "mad4pg": SystemEntry(
+        make_mad4pg, MaddpgConfig, action_space="continuous",
+        description="MADDPG with a C51 distributional critic",
+    ),
     "ippo": SystemEntry(
         make_ippo, PPOConfig,
         description="independent PPO (decentralised critics)",
@@ -81,23 +116,38 @@ def env_action_space(spec: EnvSpec) -> str:
     return kinds.pop() if len(kinds) == 1 else "mixed"
 
 
-def check_support(system_name: str, spec: EnvSpec) -> Optional[str]:
-    """None when the system supports this env spec, else the reason not."""
+def _support_reason(system_name: str, action_space: str, spec: EnvSpec) -> Optional[str]:
     env_kind = env_action_space(spec)
-    if env_kind != "discrete":
-        return f"{system_name} supports discrete action spaces; env has {env_kind} actions"
+    if env_kind != action_space:
+        return (
+            f"{system_name} supports {action_space} action spaces; "
+            f"env has {env_kind} actions"
+        )
     return None
 
 
-def _env_kwargs_for(env_name: str, env_kwargs=None) -> dict:
+def check_support(system_name: str, spec: EnvSpec) -> Optional[str]:
+    """None when the system supports this env spec, else the reason not."""
+    return _support_reason(system_name, REGISTRY[system_name].action_space, spec)
+
+
+def _env_supports_continuous(env_name: str) -> bool:
+    return "continuous" in inspect.signature(ENV_REGISTRY[env_name]).parameters
+
+
+def _env_kwargs_for(system_name: str, env_name: str, env_kwargs=None) -> dict:
     kwargs = dict(env_kwargs or {})
-    if kwargs.get("continuous") and (
-        "continuous" not in inspect.signature(ENV_REGISTRY[env_name]).parameters
-    ):
+    if kwargs.get("continuous") and not _env_supports_continuous(env_name):
         raise ValueError(
             f"env {env_name!r} has no continuous-action mode "
             "(no `continuous` construction flag)"
         )
+    if (
+        REGISTRY[system_name].action_space == "continuous"
+        and "continuous" not in kwargs
+        and _env_supports_continuous(env_name)
+    ):
+        kwargs["continuous"] = True
     return kwargs
 
 
@@ -120,7 +170,7 @@ def compatibility(system_name: str, env_name: str, env_kwargs=None) -> Optional[
     if reason is not None:
         return reason
     try:
-        kwargs = _env_kwargs_for(env_name, env_kwargs)
+        kwargs = _env_kwargs_for(system_name, env_name, env_kwargs)
     except ValueError as e:
         return str(e)
     return check_support(system_name, ENV_REGISTRY[env_name](**kwargs).spec())
@@ -138,20 +188,29 @@ def make_system(name: str, env, **overrides):
     if name not in REGISTRY:
         raise KeyError(f"unknown system {name!r}; registered: {sorted(REGISTRY)}")
     entry = REGISTRY[name]
-    # the factory itself would crash on a mismatched spec
+    # pre-build: the factory itself would crash on a mismatched spec
     reason = check_support(name, env.spec())
     if reason is not None:
         raise ValueError(f"incompatible system/env: {reason}")
-    return entry.factory(env, entry.config_cls(**overrides))
+    system = entry.factory(env, entry.config_cls(**overrides))
+    # post-build: the System's own declaration must agree with its entry
+    reason = _support_reason(name, system.action_space, system.spec)
+    if reason is not None:
+        raise ValueError(f"incompatible system/env: {reason}")
+    return system
 
 
 def make_pair(system_name: str, env_name: str, *, env_kwargs: Optional[dict] = None,
               **overrides):
-    """Build ``(env, system)`` by name; ``env_kwargs`` go to the env's constructor."""
+    """Build ``(env, system)`` by name; ``env_kwargs`` go to the env's constructor.
+
+    A continuous-control system turns on the env's ``continuous=True``
+    construction flag when the env has one (spec-checked afterwards).
+    """
     if system_name not in REGISTRY:
         raise KeyError(f"unknown system {system_name!r}; registered: {sorted(REGISTRY)}")
     if env_name not in ENV_REGISTRY:
         raise KeyError(f"unknown env {env_name!r}; registered: {sorted(ENV_REGISTRY)}")
-    kwargs = _env_kwargs_for(env_name, env_kwargs)
+    kwargs = _env_kwargs_for(system_name, env_name, env_kwargs)
     env = ENV_REGISTRY[env_name](**kwargs)
     return env, make_system(system_name, env, **overrides)

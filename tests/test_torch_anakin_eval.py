@@ -2,7 +2,11 @@
 
 * seed lanes: lane ``s`` of a ``num_seeds=3`` Anakin run is the single run
   with seed ``s``: its metrics over the first rollout and its params after
-  the first update at 1e-5 (ippo, mappo and rec-MAPPO with the linear core);
+  the first update at 1e-5 (ippo, mappo and rec-MAPPO with the linear core),
+  and over the replay fill and the first update (vdn on spread, and mad4pg
+  on continuous spread), whose gate reads the table's Python-int fill: its
+  losses and gradients at 1e-5, and the params after it at 1e-5 except
+  where Adam's first step amplifies rounding (see the test);
 * an interleaved evaluation equals the standalone `evaluate` from the same
   train state and the seed the runner drew for it (one run and lanes);
 * the port's `evaluate` against ``repro.eval.evaluate`` on matrix_game from
@@ -34,6 +38,8 @@ from repro_torch.envs import MatrixGame  # noqa: E402
 from repro_torch.eval import evaluate, make_evaluator  # noqa: E402
 from repro_torch.eval import stats as tstats  # noqa: E402
 from repro_torch.launch import train_marl  # noqa: E402
+from repro_torch.systems import maddpg as tmad  # noqa: E402
+from repro_torch.systems import offpolicy as toff  # noqa: E402
 from repro_torch.systems import onpolicy as ton  # noqa: E402
 from repro_torch.systems import registry  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -54,8 +60,14 @@ SMALL = dict(hidden_sizes=(16, 16), rollout_len=8, epochs=2, num_minibatches=2)
 NUM_ENVS = 4
 
 
+# the replay family: the gate opens with the 4th iteration's rows
+REPLAY_SMALL = dict(hidden_sizes=(16, 16), batch_size=8, buffer_capacity=64,
+                    min_replay=4 * NUM_ENVS)
+
+
 def _system(name, env, **overrides):
-    kw = dict(SMALL, **overrides)
+    replay = registry.REGISTRY[name].config_cls is not ton.PPOConfig
+    kw = dict(REPLAY_SMALL if replay else SMALL, **overrides)
     if name.startswith("rec_"):
         kw.setdefault("recurrent_core", "linear")
     return registry.make_pair(name, env, env_kwargs={"horizon": 5}, **kw)[1]
@@ -65,23 +77,86 @@ def _close(got, want):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=TOL, rtol=TOL)
 
 
+def _record_grads(monkeypatch, module):
+    """Record the ``(loss, grads)`` of every update the module's systems run."""
+    seen, inner = [], module._value_and_grad
+
+    def value_and_grad(*args):
+        seen.append(inner(*args))
+        return seen[-1]
+
+    monkeypatch.setattr(module, "_value_and_grad", value_and_grad)
+    return seen
+
+
+def _grads_like_params(seen, name):
+    """The recorded first update's gradients, as a tree shaped like the params."""
+    if name == "mad4pg":  # the critic's, then the actor's
+        return {"critic": seen[0][1], "actor": seen[1][1]}
+    return seen[0][1]
+
+
 @pytest.mark.parametrize("name,env", [
     ("ippo", "spread"), ("mappo", "lbf"), ("rec_mappo", "spread"),
+    ("vdn", "spread"), ("mad4pg", "spread"),
 ])
-def test_seed_lanes_equal_serial_runs(name, env):
+def test_seed_lanes_equal_serial_runs(name, env, monkeypatch):
     system = _system(name, env)
-    iters = SMALL["rollout_len"]  # one rollout, then the first update
+    ppo = name in ("ippo", "mappo", "rec_mappo")
+    if ppo:
+        iters, updates = SMALL["rollout_len"], 1  # one rollout, then the first update
+    else:  # the 4th iteration's rows open the gate: the first update follows them
+        iters, updates = 4, 1
+        seen = _record_grads(monkeypatch, tmad if name == "mad4pg" else toff)
     st, m = train_anakin(system, 0, iters, NUM_ENVS, num_seeds=3, device="cpu")
-    assert m["reward"].shape == (3, iters) and m["loss"].shape == (3, 1)
-    assert st.train.steps.tolist() == [1, 1, 1] and st.buffer.t == 0
+    loss = "critic_loss" if name == "mad4pg" else "loss"
+    assert m["reward"].shape == (3, iters) and m[loss].shape == (3, updates)
+    if ppo:
+        assert st.train.steps.tolist() == [1, 1, 1] and st.buffer.t == 0
+    else:  # one update count and one fill for every lane, on the host
+        assert st.train.steps == updates and st.buffer.lanes == 3
+        assert isinstance(st.buffer.size, int) and isinstance(st.buffer.insert_pos, int)
+        assert st.buffer.size == iters * NUM_ENVS
+        lane_grads = tree_leaves(_grads_like_params(seen, name))
     assert st.carry == () or tree_leaves(st.carry)[0].shape[:2] == (3, NUM_ENVS)
     assert st.env_state.length.shape == st.timestep.step_type.shape == (3, NUM_ENVS)
     for s in range(3):
+        if not ppo:
+            seen.clear()
         one, m1 = train_anakin(system, s, iters, NUM_ENVS, device="cpu")
         for k in m:
             _close(m[k][s], m1[k])
-        for x, y in zip(tree_leaves(st.train), tree_leaves(one.train), strict=True):
+        if ppo:
+            for x, y in zip(tree_leaves(st.train), tree_leaves(one.train), strict=True):
+                _close(x[s], y)
+            continue
+        # the replay family: the update's gradients at 1e-5, then the state
+        # after it at 1e-5.  One exception, mad4pg's alone: where its two
+        # gradients differ and are within 1e-6 of zero, Adam's first step
+        # lr * g / (|g| + 1e-8) turns their ~1e-9 rounding (a lane's bmm
+        # against the single run's mm: the C51 logits of empty atoms) into
+        # up to lr, so those params are held at twice the learning rate,
+        # the size a first step can take
+        grads = tree_leaves(_grads_like_params(seen, name))
+        for x, y in zip(lane_grads, grads, strict=True):
             _close(x[s], y)
+        tiny = iter([(g.abs() < 1e-6) & (x[s] != g) if name == "mad4pg"
+                     else torch.zeros_like(g, dtype=torch.bool)
+                     for x, g in zip(lane_grads, grads, strict=True)])
+        cfg = registry.REGISTRY[name].config_cls()
+        lr = max(getattr(cfg, f, 0.0) for f in ("learning_rate", "actor_lr", "critic_lr"))
+        n_params = len(grads)  # the params lead the train state's leaves
+        for i, (x, y) in enumerate(zip(tree_leaves(st.train), tree_leaves(one.train),
+                                       strict=True)):
+            if not isinstance(x, torch.Tensor):
+                assert x == y
+            elif i < n_params:
+                t = next(tiny)
+                err = (x[s] - y).abs()
+                assert bool((err[~t] <= TOL + TOL * y.abs()[~t]).all()), float(err[~t].max())
+                assert bool((err[t] <= 2 * lr).all())
+            else:
+                _close(x[s], y)
     # lanes are independent runs, not copies of one
     assert not torch.equal(m["reward"][0], m["reward"][1])
 
@@ -189,23 +264,27 @@ def test_launcher_on_the_cpu_and_without_a_device(monkeypatch, capsys):
 def test_registry_compatibility_and_make_pair():
     assert set(registry.REFERENCE_SYSTEMS) == set(jreg.REGISTRY)
     assert set(registry.REFERENCE_ENVS) == set(JAX_ENVS)
-    assert sorted(registry.REGISTRY) == ["ippo", "mappo", "rec_ippo", "rec_mappo"]
+    assert sorted(registry.REGISTRY) == [
+        "ippo", "mad4pg", "maddpg", "madqn", "madqn-fp", "mappo", "qmix", "rec_ippo",
+        "rec_mappo", "vdn"]
+    continuous = {"maddpg", "mad4pg"}
     for name in registry.REGISTRY:
         for env in ("matrix_game", "spread", "lbf"):
-            assert registry.compatibility(name, env) is None
-            assert jreg.compatibility(name, env) is None
-        # the reference's reasons, word for word
-        for kw in ({"continuous": True},):
-            assert (registry.compatibility(name, "spread", kw)
-                    == jreg.compatibility(name, "spread", kw) is not None)
-            assert (registry.compatibility(name, "lbf", kw)
-                    == jreg.compatibility(name, "lbf", kw) is not None)
-    assert registry.compatibility("vdn", "spread") == "system 'vdn' is not ported yet"
+            runs = env == "spread" or name not in continuous
+            assert (registry.compatibility(name, env) is None) == runs
+            # the reference's reasons (or None), word for word, with and
+            # without the continuous mode
+            for kw in (None, {"continuous": True}):
+                assert registry.compatibility(name, env, kw) == jreg.compatibility(name, env, kw)
+            assert (registry.compatibility(name, env, {"continuous": True}) is None) == (
+                env == "spread" and name in continuous)
+    assert registry.compatibility("dial", "spread") == "system 'dial' is not ported yet"
+    assert registry.compatibility("rec_madqn", "lbf") == "system 'rec_madqn' is not ported yet"
     assert registry.compatibility("ippo", "smax_lite") == "env 'smax_lite' is not ported yet"
     with pytest.raises(KeyError):
         registry.compatibility("no_such_system", "spread")
     with pytest.raises(KeyError):
-        registry.make_pair("vdn", "spread")
+        registry.make_pair("dial", "spread")
     env, system = registry.make_pair("mappo", "lbf", rollout_len=16)
     assert system.name == "mappo" and system.spec.state.shape == (40,)
     assert system.env is env

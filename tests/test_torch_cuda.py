@@ -25,7 +25,10 @@ and a smoke-sized InternLM2 train step on the GPU must launch the flash
 kernel twice a layer (remat runs each layer's forward again) and the
 xent kernel and its combine once.  A seed-lane (3 lanes) rec-MAPPO and
 IPPO update on the card must match the same update on the CPU at 1e-4,
-rec-MAPPO's with no more scan launches than one lane needs.
+rec-MAPPO's with no more scan launches than one lane needs.  Every
+replay system's training iteration (act, write the table, update, a hard
+target sync among them) runs under `torch.cuda.set_sync_debug_mode`
+("error"): it never waits on the card.
 """
 import pytest
 
@@ -166,6 +169,35 @@ def test_seed_lane_update_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
         # 3 bootstrap unrolls, then per minibatch 3 agents x 2 nets x (fwd + bwd):
         # the seed lanes fold into the kernel's D axis and add no launch
         assert launches == 3 + 2 * 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,env", [
+    ("madqn", "matrix_game"), ("madqn-fp", "matrix_game"), ("vdn", "spread"),
+    ("qmix", "lbf"), ("maddpg", "spread"), ("mad4pg", "spread"),
+])
+def test_replay_iterations_never_wait_on_the_card(cuda, name, env):
+    from repro_torch.core.system import _one_iteration, _training_env, init_system_state
+    from repro_torch.core.system import seed_generators
+    from repro_torch.systems.registry import make_pair
+
+    kw = dict(hidden_sizes=(16, 16), batch_size=8, buffer_capacity=64, min_replay=16)
+    if name not in ("maddpg", "mad4pg"):
+        kw["target_update_period"] = 2  # a hard target sync among the updates
+    # horizon 3: the episodes end and restart among the checked iterations
+    _, system = make_pair(name, env, env_kwargs={"horizon": 3}, **kw)
+    tenv = _training_env(system.env)
+    st = init_system_state(system, seed_generators(0, 2, cuda), 4, tenv)
+    for _ in range(4):  # the 4th iteration's rows open the gate; its update warms up
+        st, _, _ = _one_iteration(system, tenv, st)
+    assert st.train.steps == 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            st, _, _ = _one_iteration(system, tenv, st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.train.steps == 5 and st.buffer.size == 8 * 4
 
 
 def _scan_inputs(b, S, di, N, dtype, device, seed=0):
