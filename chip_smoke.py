@@ -123,6 +123,33 @@ slice; no kernel lies on its path:
     on the CPU with the same sample indices: losses, gradients and the
     params after it at 1e-4; the params after 8 updates are a reading.
 
+The rest of the support matrix (rec-MADQN, DIAL, RIAL; switch_game,
+speaker_listener, smax_lite, robot_warehouse), the eighth slice:
+
+24. kernel parity: recurrent_scan against its plain versions (as in 2)
+    at the new paths' shapes, H = 64: T = 4 and 8 (rec-MADQN's burn-in
+    and suffix) and 6 (DIAL's fused re-run), B = 32 windows and 256 envs
+    x 8 lanes, and with the 3 agents of a shared stack folded in (B =
+    768 and 6144); its time at rec-MADQN's suffix (T=8, B=768) beside
+    its bound;
+25. train: rec_madqn (linear core) on spread and dial on switch_game (3
+    runs each), rec_madqn (GRU, per-agent stacks) on speaker_listener,
+    rial and the fused no-channel dial (linear core) on switch_game, vdn
+    on smax_lite and ippo on robot_warehouse, at the registry's
+    defaults, 8 seed lanes x 256 envs x 256 iterations with a greedy
+    evaluation of 32 episodes a lane every 128: updates a lane from the
+    dataset's fill, losses and eval returns finite, env steps/s (median,
+    min, max), the last greedy team return, and recurrent_scan launched
+    5 times a rec-MADQN update and 3 times a fused DIAL update;
+26. slice parity: the first update of rec-MADQN (linear core, through
+    the kernel) on spread and of DIAL on switch_game, 2 seed lanes x 256
+    envs, on the card and on the CPU with the same window indices and
+    DRU noise: loss, gradients and params after it at 1e-4;
+27. the reference's milestones on the card at their own configs:
+    tests/test_seq_replay.py:279 (rec-MADQN, climbing game, 5,000
+    iterations x 8 envs), tests/test_marl_modules.py:98 and :105 (DIAL
+    not diverging over 60 updates, RIAL improving over 120).
+
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -219,6 +246,30 @@ REPLAY_PARITY = [("vdn", "spread"), ("qmix", "lbf"), ("mad4pg", "spread")]
 # tests/test_system.py:13-20, FAST_CFG
 REPLAY_MILESTONE_CFG = dict(buffer_capacity=5_000, min_replay=100, batch_size=32,
                             eps_decay_steps=2_000, target_update_period=50, learning_rate=1e-3)
+# the rest of the support matrix (rec-MADQN, DIAL, RIAL; switch_game, speaker_listener,
+# smax_lite, robot_warehouse) at the registry's defaults, 8 seed lanes x 256 envs x 256
+# iterations like the MARL phase: (label, system, env, config overrides, runs)
+MATRIX_RUNS = [
+    ("rec_madqn linear", "rec_madqn", "spread", {"recurrent_core": "linear"}, 3),
+    ("rec_madqn gru", "rec_madqn", "speaker_listener", {}, 1),
+    ("dial", "dial", "switch_game", {}, 3),
+    ("rial", "rial", "switch_game", {}, 1),
+    ("dial fused", "dial", "switch_game", {"use_comm": False, "recurrent_core": "linear"}, 1),
+    ("vdn", "vdn", "smax_lite", {}, 1),
+    ("ippo", "ippo", "robot_warehouse", {}, 1),
+]
+# recurrent_scan on those paths, H = 64: rec-MADQN's burn-in (T=4) and suffix (T=8) over
+# 32 windows x 8 lanes (x 3 agents, who share one stack: 768), DIAL's fused re-run (T=6)
+# over 256 envs x 8 lanes (x 3 agents: 6144)
+MATRIX_SCAN_SHAPES = [(T, B, 64) for T in (4, 8, 6) for B in (32 * MARL_SEEDS,
+                                                               MARL_ENVS * MARL_SEEDS)]
+MATRIX_SCAN_SHAPES += [(4, 3 * 32 * MARL_SEEDS, 64), (8, 3 * 32 * MARL_SEEDS, 64),
+                       (6, 3 * MARL_ENVS * MARL_SEEDS, 64)]
+REC_MADQN_SUFFIX = (8, 3 * 32 * MARL_SEEDS, 64)  # the shape its kernel time is read at
+# tests/test_seq_replay.py:279-296, the rec-MADQN milestone's config (climbing game)
+REC_MADQN_MILESTONE_CFG = dict(hidden_sizes=(32,), learning_rate=1e-3, seq_len=5, burn_in=2,
+                               buffer_capacity=1024, batch_size=32, min_windows=64,
+                               eps_decay_steps=3000, target_update_period=100)
 
 
 def _require(cond, msg):
@@ -294,10 +345,12 @@ def _within(x, y, tol):
     return bool(((x - y).abs() <= tol + tol * y.abs()).all())
 
 
-def kernel_parity(ops, ref):
+def kernel_parity(ops, ref, shapes=None):
     """Forward, adjoint and gradients of the op against the plain versions."""
     worst = {"forward": 0.0, "reverse": 0.0, "chunked": 0.0, "grad": 0.0}
-    for T, B, H in PATH_SHAPES + MARL_PATH_SHAPES + [RAGGED] + SCAN_EDGE_SHAPES:
+    if shapes is None:
+        shapes = PATH_SHAPES + MARL_PATH_SHAPES + [RAGGED] + SCAN_EDGE_SHAPES
+    for T, B, H in shapes:
         for i, pattern in enumerate(PATTERNS):
             a, b, h0, reset = _inputs(T, B, H, pattern, seed=i, chunk=ops.KERNEL_CHUNK)
             out = ops.linear_recurrent_scan(a, b, h0, reset)
@@ -373,7 +426,7 @@ def _device_ms(fn, inner=20, reps=10):
     return statistics.median(times)
 
 
-def kernel_timing(ops, ref):
+def kernel_timing(ops, ref, shapes=None):
     """Kernel, plain-version and bound times at the path's shapes.
 
     ``ms`` times calls launched eagerly (`_time_ms`), which the host's cost
@@ -381,7 +434,7 @@ def kernel_timing(ops, ref):
     from a CUDA graph (`_device_ms`).  Each has its share of the bound.
     """
     rows = []
-    for T, B, H in PATH_SHAPES + MARL_PATH_SHAPES:
+    for T, B, H in shapes or PATH_SHAPES + MARL_PATH_SHAPES:
         a, b, h0, reset = _inputs(T, B, H, "random", seed=0)
         D = B * H
         flat = (a.reshape(T, D), b.reshape(T, D), reset, h0.reshape(D))
@@ -852,6 +905,242 @@ def replay_phase(tag):
               f"{e['grads']:.3e}, params after it {e['params']:.3e} (tol {SLICE_TOL}); after "
               f"{e['steps']} updates params {e['update_params']:.3e} (a reading)")
     print(f"slice 7 (replay) in {time.perf_counter() - t0:.1f} s")
+
+
+def _matrix_updates(system, name, cfg):
+    """Updates a lane in one matrix run, from the dataset's fill alone."""
+    from repro_torch.core.buffer import seq_expected_size
+
+    if name == "rec_madqn":
+        window, stride = cfg.burn_in + cfg.seq_len, cfg.stride or cfg.seq_len
+        ready = next(t for t in range(1, MARL_ITERATIONS + 1) if seq_expected_size(
+            t, cfg.buffer_capacity, window, MARL_ENVS, stride) >= cfg.min_windows)
+        return MARL_ITERATIONS - ready + 1
+    if name in ("dial", "rial", "ippo"):
+        return MARL_ITERATIONS // (cfg.rollout_len or int(system.env.horizon))
+    return MARL_ITERATIONS - -(-cfg.min_replay // MARL_ENVS) + 1  # the replay family
+
+
+def matrix_train(ops):
+    """This slice's path: the systems and envs new to the port, 8 seeds as lanes of one batch.
+
+    Each run: 256 envs x 8 seeds x 256 iterations at the registry's
+    defaults with a greedy evaluation of 32 episodes a lane every 128
+    iterations.  The scan counter is set to 0 just before each run and read
+    just after: rec-MADQN's linear core launches it 5 times an update (its
+    3 agents share one stack: both burn-ins, the suffix forward and
+    backward, the target suffix), the fused no-channel DIAL 3 times (every
+    agent's re-run: forward and backward, the target's forward), the rest
+    never.
+    """
+    from repro_torch.systems.registry import REGISTRY, make_pair
+
+    rows = {}
+    for label, name, env, overrides, runs in MATRIX_RUNS:
+        _, system = make_pair(name, env, **overrides)
+        cfg = REGISTRY[name].config_cls(**overrides)
+        walls, launches = [], []
+        for _ in range(runs):
+            ops.linear_recurrent_scan.launches = 0
+            (state, metrics, evals), wall = _marl_run(system, MARL_SEEDS)
+            launches.append(ops.linear_recurrent_scan.launches)
+            walls.append(wall)
+        updates = _matrix_updates(system, name, cfg)
+        steps = state.train.steps
+        steps = steps if isinstance(steps, int) else steps.tolist()
+        _require(steps in (updates, [updates] * MARL_SEEDS),
+                 f"{label}: {steps} updates, expected {updates}")
+        _require(metrics["loss"].shape == (MARL_SEEDS, updates),
+                 f"{label} losses {tuple(metrics['loss'].shape)}")
+        _require(evals.episode_return.shape == (MARL_SEEDS, MARL_ITERATIONS // MARL_EVAL_EVERY,
+                                                MARL_EPISODES),
+                 f"{label} eval returns {tuple(evals.episode_return.shape)}")
+        for k, v in [*metrics.items(), ("eval", evals.episode_return)]:
+            _require(bool(torch.isfinite(v).all()), f"{label}: non-finite {k}")
+        per_update = {"rec_madqn linear": 5, "dial fused": 3}.get(label, 0)
+        _require(launches == [per_update * updates] * runs,
+                 f"{label}: recurrent_scan launched {launches}x a run, expected "
+                 f"{per_update * updates}")
+        steps_total = MARL_ITERATIONS * MARL_ENVS * MARL_SEEDS
+        rates = sorted(steps_total / w for w in walls)
+        rows[label] = {
+            "system": name, "env": env, "walls_s": walls,
+            "env_steps_per_s": rates[len(rates) // 2], "env_steps_per_s_min": rates[0],
+            "env_steps_per_s_max": rates[-1], "updates": updates,
+            "last_eval_return": evals.episode_return[:, -1].mean().item(),
+            "last_loss": metrics["loss"][:, -1].mean().item(),
+            "launches": launches[-1], "launches_per_update": per_update,
+        }
+    return rows
+
+
+def matrix_update_parity(ops, name, env, overrides):
+    """The first update of 2 seed lanes x 256 envs on the card and on the CPU.
+
+    The dataset is filled on the card (rec-MADQN: the sequence table to
+    ``min_windows`` windows; DIAL: one rollout), then both devices update
+    from the same state with the same draws: rec-MADQN's window indices,
+    DIAL's DRU noise (one CPU stream replayed on each device).  Held at
+    ``SLICE_TOL``: the loss, the gradients and the params after the step.
+    """
+    from repro_torch.core import buffer as table
+    from repro_torch.core.system import _step_phase, _training_env, init_system_state
+    from repro_torch.core.system import seed_generators
+    from repro_torch.systems import dial, rec_madqn
+    from repro_torch.systems.registry import make_pair
+    from repro_torch.tree import tree_leaves, tree_map
+
+    _, system = make_pair(name, env, **overrides)
+    module = rec_madqn if name == "rec_madqn" else dial
+    lanes = 2
+    tenv = _training_env(system.env)
+    st = init_system_state(system, seed_generators(0, lanes, "cuda"), MARL_ENVS, tenv)
+    with torch.no_grad():
+        while not system.can_sample(st.buffer):
+            st, _ = _step_phase(system, tenv, st)
+    if name == "rec_madqn":
+        idx = torch.randint(st.buffer.size, (lanes, _replay_config(name).batch_size),
+                            generator=torch.Generator().manual_seed(0))
+    hooks = {k: getattr(module, k) for k in ("_value_and_grad", "_apply")}
+    sample_indices, dru_noise = table.sample_indices, dial._dru_noise
+    results = []
+    try:
+        for dev in ("cuda", "cpu"):
+            seen = {}
+
+            def value_and_grad(*args):
+                seen["loss_grads"] = hooks["_value_and_grad"](*args)
+                return seen["loss_grads"]
+
+            def apply(*args):
+                out = hooks["_apply"](*args)
+                seen["params"] = out[0]
+                return out
+
+            noise = torch.Generator().manual_seed(1)
+            dial._dru_noise = lambda g, shape, n, c, d, noise=noise: [
+                torch.randn(*shape, c, generator=noise).to(d) for _ in range(n)]
+            table.sample_indices = lambda s, g, n, dev=dev: idx.to(dev)
+            module._value_and_grad, module._apply = value_and_grad, apply
+            move = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x
+            before = ops.linear_recurrent_scan.launches
+            system.update(tree_map(move, st.train), tree_map(move, st.buffer),
+                          seed_generators(0, lanes, dev))
+            loss, grads = seen["loss_grads"]
+            results.append({"loss": [loss], "grads": tree_leaves(grads),
+                            "params": tree_leaves(seen["params"]),
+                            "launches": ops.linear_recurrent_scan.launches - before})
+    finally:
+        table.sample_indices, dial._dru_noise = sample_indices, dru_noise
+        for k, v in hooks.items():
+            setattr(module, k, v)
+    gpu, cpu = results
+    err = {k: max(_err(x.cpu(), y) for x, y in zip(gpu[k], cpu[k])) for k in
+           ("loss", "grads", "params")}
+    for k in ("loss", "grads"):
+        _require(all(_within(x.cpu(), y, SLICE_TOL) for x, y in zip(gpu[k], cpu[k])),
+                 f"{name}: {k} on the card differs from the CPU by {err[k]}")
+    _require(err["params"] <= SLICE_TOL,
+             f"{name}: params after the update differ from the CPU by {err['params']}")
+    err["launches"] = gpu["launches"]
+    return err
+
+
+def matrix_milestones():
+    """The reference's own milestones on the card, at their own configs.
+
+    tests/test_seq_replay.py:279 (rec-MADQN, GRU, on the climbing game,
+    5,000 iterations x 8 envs: the last 10 of 100 blocks of 50 iterations
+    above the first 10 by 1), tests/test_marl_modules.py:98 and :105 (DIAL
+    over 60 updates not diverging, RIAL over 120 improving, 16 envs on the
+    3-prisoner switch riddle).
+    """
+    from repro_torch.core import train_anakin
+    from repro_torch.envs import MatrixGame, SwitchGame
+    from repro_torch.systems import DialConfig, RecMadqnConfig, make_dial, make_rec_madqn
+
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    system = make_rec_madqn(MatrixGame(horizon=10), RecMadqnConfig(**REC_MADQN_MILESTONE_CFG))
+    _, metrics = train_anakin(system, 0, 5000, 8, device="cuda")
+    r = metrics["reward"].reshape(100, 50).mean(-1).cpu()
+    first, late = float(r[:10].mean()), float(r[-10:].mean())
+    _require(late > first + 1.0, f"rec_madqn milestone: first 10 blocks {first}, last {late}")
+    out["rec_madqn"] = {"first": first, "late": late, "wall_s": time.perf_counter() - t0}
+    for protocol, updates, k, margin in (("dial", 60, 15, -0.05), ("rial", 120, 30, 0.0)):
+        env = SwitchGame(num_agents=3)
+        t0 = time.perf_counter()
+        system = make_dial(env, DialConfig(protocol=protocol))
+        _, metrics = train_anakin(system, 0, updates * env.horizon, 16, device="cuda")
+        r = metrics["reward"].reshape(updates, env.horizon).mean(-1).cpu()
+        first, late = float(r[:k].mean()), float(r[-k:].mean())
+        _require(bool(torch.isfinite(r).all()) and late > first + margin,
+                 f"{protocol} milestone: first {k} updates {first}, last {k} {late}")
+        out[protocol] = {"first": first, "late": late, "wall_s": time.perf_counter() - t0}
+    return out
+
+
+def matrix_phase(tag, ops, ref):
+    """Slice 8: the runs, the scan at the new shapes, card-vs-CPU updates, the milestones."""
+    t0 = time.perf_counter()
+    worst = kernel_parity(ops, ref, MATRIX_SCAN_SHAPES)
+    print(f"kernel parity (matrix): recurrent_scan forward {worst['forward']:.3e}, reverse "
+          f"{worst['reverse']:.3e}, chunked {worst['chunked']:.3e} (tol {FWD_TOL}), grads "
+          f"{worst['grad']:.3e} (tol {GRAD_TOL}) over {MATRIX_SCAN_SHAPES} x resets {PATTERNS}")
+    timing = kernel_timing(ops, ref, [REC_MADQN_SUFFIX])
+    for r in timing:
+        print(f"kernel timing (matrix): recurrent_scan {r['direction']} T={r['T']} B={r['B']} "
+              f"H={r['H']} (rec-MADQN's suffix): {r['device_ms'] * 1e3:.2f} us on the device, "
+              f"{r['ms'] * 1e3:.2f} us launched eagerly, plain {r['plain_ms'] * 1e3:.1f} us, "
+              f"bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']} "
+              f"({r['device_bound_share']:.3f} of it on the device) {tag}")
+    rows = matrix_train(ops)
+    for label, r in rows.items():
+        scan = (f"; recurrent_scan launches {r['launches']} a run, {r['launches_per_update']} "
+                f"an update" if r["launches_per_update"] else "")
+        print(
+            f"train (matrix): {label} ({r['system']}) on {r['env']}, {MARL_SEEDS} seeds x "
+            f"{MARL_ENVS} envs x {MARL_ITERATIONS} iterations, greedy eval of {MARL_EPISODES} "
+            f"episodes a lane every {MARL_EVAL_EVERY}: {r['env_steps_per_s']:.0f} env steps/s "
+            f"median of {len(r['walls_s'])} (min {r['env_steps_per_s_min']:.0f}, max "
+            f"{r['env_steps_per_s_max']:.0f}), walls {[round(w, 3) for w in r['walls_s']]} s; "
+            f"{r['updates']} updates a lane, last loss {r['last_loss']:.4f}, last greedy team "
+            f"return {r['last_eval_return']:.4f}{scan} {tag}"
+        )
+    for name, env, overrides in (("rec_madqn", "spread", {"recurrent_core": "linear"}),
+                                 ("dial", "switch_game", {})):
+        e = matrix_update_parity(ops, name, env, overrides)
+        _require((e["launches"] > 0) == (name == "rec_madqn"),
+                 f"{name} parity update launched recurrent_scan {e['launches']}x")
+        print(f"slice parity (matrix): {name} on {env}, the first update of 2 seed lanes x "
+              f"{MARL_ENVS} envs on the card vs the CPU: loss {e['loss']:.3e}, grads "
+              f"{e['grads']:.3e}, params after it {e['params']:.3e} (tol {SLICE_TOL}); "
+              f"recurrent_scan launches {e['launches']}")
+    ms = matrix_milestones()
+    print(f"milestone: rec_madqn matrix_game (tests/test_seq_replay.py:279), 5000 iterations x 8 "
+          f"envs: first 10 blocks {ms['rec_madqn']['first']:.3f}, last 10 "
+          f"{ms['rec_madqn']['late']:.3f} (> first + 1) in {ms['rec_madqn']['wall_s']:.1f} s; "
+          f"dial switch_game (tests/test_marl_modules.py:98), 60 updates: first 15 "
+          f"{ms['dial']['first']:.3f}, last 15 {ms['dial']['late']:.3f} (> first - 0.05) in "
+          f"{ms['dial']['wall_s']:.1f} s; rial (:105), 120 updates: first 30 "
+          f"{ms['rial']['first']:.3f}, last 30 {ms['rial']['late']:.3f} (> first) in "
+          f"{ms['rial']['wall_s']:.1f} s {tag}")
+    print(f"slice 8 (matrix) in {time.perf_counter() - t0:.1f} s")
+    suffix = next(r for r in timing if r["direction"] == "forward")
+    return {
+        "launches_rec_madqn": rows["rec_madqn linear"]["launches"],
+        "launches_dial_fused": rows["dial fused"]["launches"],
+        "max_abs_err_matrix": max(worst.values()),
+        "device_ms_rec_madqn": suffix["device_ms"],
+        "ms_rec_madqn": suffix["ms"],
+        "plain_ms_rec_madqn": suffix["plain_ms"],
+        "bound_ms_rec_madqn": suffix["bound_ms"],
+        "bound_by_rec_madqn": suffix["bound_by"],
+        "shape_rec_madqn": "T=8 B=768 H=64 forward (rec-MADQN's suffix: 3 agents x 32 "
+                           "windows x 8 lanes)",
+        "by_shape_matrix": timing,
+    }
 
 
 def _scan_inputs(b, S, di, N, dtype, seed):
@@ -1356,6 +1645,9 @@ def main():
     # ---- slice 7: the replay family (no kernel on this path)
     replay_phase(tag)
 
+    # ---- slice 8: the rest of the support matrix (rec-MADQN, DIAL, RIAL, four envs)
+    matrix = matrix_phase(tag, ops, ref)
+
     # ---- slice 2: Falcon-Mamba-7B greedy serving
     scan_worst = scan_parity(sops, sref)
     for case, e in scan_worst.items():
@@ -1471,7 +1763,8 @@ def main():
         "replaces": "src/repro/kernels/recurrent_scan/kernel.py:72",
         "launches": run["launches"],
         "launches_rec_mappo": rec_mappo_launches,
-        "max_abs_err": max(worst.values()),
+        **{k: v for k, v in matrix.items() if k.startswith("launches")},
+        "max_abs_err": max(*worst.values(), matrix["max_abs_err_matrix"]),
         "ms": main_row["ms"],
         "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1482,6 +1775,7 @@ def main():
                   "carries combined in shared memory",
         "shape": "T=128 B=64 H=64 forward (the minibatch unroll)",
         "by_shape": rows,
+        **{k: v for k, v in matrix.items() if not k.startswith("launches")},
         "gpu": gpu,
     }, {
         "name": "selective_scan",

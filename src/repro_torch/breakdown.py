@@ -5,14 +5,17 @@
 
 Builds ``--system`` on ``--env`` from the registries at its config's
 defaults (rec-IPPO with the linear core on matrix_game unless told
-otherwise; a recurrent system always gets the linear core), with
-``--num-seeds`` seed lanes if asked.
+otherwise; a ``rec_`` system gets the linear core unless ``--set``
+says otherwise), with ``--num-seeds`` seed lanes if asked; each ``--set
+FIELD=VALUE`` changes one field of the system's config (``--set
+use_comm=False --set recurrent_core=linear`` is DIAL's fused re-run).
 
-A rollout system (the PPO family) runs one rollout and update to warm up
-(kernel build, cuBLAS handles, the caching allocator), then times one
-more rollout (the acting iterations) and its update with the host clock
-around synchronised work.  A replay system (the off-policy family)
-updates after every iteration once its table holds ``min_replay`` rows:
+A rollout system (the PPO family, DIAL and RIAL) runs one rollout and
+update to warm up (kernel build, cuBLAS handles, the caching allocator),
+then times one more rollout (the acting iterations) and its update with
+the host clock around synchronised work.  A replay system (the
+off-policy family, and rec-MADQN over its sequence table) updates after
+every iteration once its table is ready:
 it fills the table, warms up for `REPLAY_ITERATIONS` iterations, then
 times that many iterations whole, and that many acting steps and that
 many updates apart.  Then the acting phase and the update phase run again
@@ -32,6 +35,7 @@ mean anything (on the card the profiler's kernels per phase are
 from __future__ import annotations
 
 import argparse
+import ast
 import collections
 import json
 import os
@@ -44,7 +48,7 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import resolve_device
-from repro_torch.core.buffer import BufferState
+from repro_torch.core.buffer import BufferState, SeqBufferState
 from repro_torch.core.system import (
     _one_iteration,
     _step_phase,
@@ -242,9 +246,18 @@ def main(argv=None):
     parser.add_argument("--env", choices=sorted(ENVS), default="matrix_game")
     parser.add_argument("--num-seeds", type=int, default=0, help="seed lanes (0: one run)")
     parser.add_argument("--device", default=None, help="default: CUDA, raising without it")
+    parser.add_argument("--set", action="append", default=[], metavar="FIELD=VALUE",
+                        help="a config field of the system, e.g. recurrent_core=gru or "
+                             "use_comm=False (repeatable)")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     overrides = {"recurrent_core": "linear"} if args.system.startswith("rec_") else {}
+    for item in args.set:
+        field, _, value = item.partition("=")
+        try:
+            overrides[field] = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            overrides[field] = value  # a bare word: a string such as gru
     _, system = make_pair(args.system, args.env, **overrides)
     tenv = _training_env(system.env)
     lanes = args.num_seeds or None
@@ -252,10 +265,11 @@ def main(argv=None):
                  else seed_generators(0, lanes, device))
     st, init_s = _timed(init_system_state, system, generator, args.num_envs, tenv)
     env_steps = args.num_envs * (lanes or 1)
-    if isinstance(st.buffer, BufferState):
+    if isinstance(st.buffer, (BufferState, SeqBufferState)):
         out = _replay_breakdown(system, tenv, st, REPLAY_ITERATIONS, env_steps)
-    else:
-        steps = SYSTEMS[args.system].config_cls(**overrides).rollout_len
+    else:  # DIAL's rollout_len None is the env's horizon
+        steps = (SYSTEMS[args.system].config_cls(**overrides).rollout_len
+                 or int(system.env.horizon))
         out = _rollout_breakdown(system, tenv, st, steps, env_steps)
     phases = out["profiled"]
     st = out.pop("state")

@@ -16,9 +16,14 @@ as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses.
 the replay family (both builders: Q nets and mixer, or actor and critic
 dicts; target params; the ``chain(clip, adamw)`` state, one a group for
 MADDPG), whose update count is a Python int in the port.
-`buffer_from_jax` / `buffer_to_jax` carry a replay table, whose cursors
-are Python ints in the port too.  Seed lanes (the reference's vmapped
-states) cross with their leading lane axis.
+The same two carry rec-MADQN's and DIAL's train states, whose update
+count is a Python int as well.  `buffer_from_jax` / `buffer_to_jax` carry
+a replay table and `seq_buffer_from_jax` / `seq_buffer_to_jax` a
+sequence-replay table, whose cursors are Python ints in the port too.
+Seed lanes (the reference's vmapped states) cross with their leading lane
+axis.  `reset_from_jax` carries a batch of env resets; a PRNG key in an
+env state (switch_game's and robot_warehouse's, which draw inside
+``step``) becomes the generator the caller passes.
 
 `lm_params_from_jax` / `lm_params_to_jax` carry a language model (dense or
 Mamba1): the JAX package stacks its layers along a leading L axis, the port
@@ -34,12 +39,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.buffer import BufferState
+from repro_torch.core.buffer import BufferState, SeqBufferState
 from repro_torch.core.types import Carry, EvalMetrics, SystemState, TrainState, Transition
 from repro_torch.envs.api import TimeStep
 from repro_torch.envs.lbf import LbfState
 from repro_torch.envs.matrix_game import MatrixGameState
+from repro_torch.envs.robot_warehouse import RwareState
+from repro_torch.envs.smax_lite import SmaxState
+from repro_torch.envs.speaker_listener import SLState
 from repro_torch.envs.spread import SpreadState
+from repro_torch.envs.switch_game import SwitchState
 from repro_torch.envs.wrappers import EpisodeStatsState
 from repro_torch.models.model import LM
 from repro_torch.optim.optimizers import AdamState
@@ -49,7 +58,8 @@ NAMEDTUPLES = {
     cls.__name__: cls
     for cls in (
         AdamState, Carry, EpisodeStatsState, EvalMetrics, LbfState, MatrixGameState,
-        SpreadState, SystemState, TimeStep, TrainState, Transition,
+        RwareState, SLState, SmaxState, SpreadState, SwitchState, SystemState, TimeStep,
+        TrainState, Transition,
     )
 }
 
@@ -100,15 +110,24 @@ def params_to_jax(tree):
     return _convert(tree, _to_numpy, lambda cls: cls)
 
 
-def reset_from_jax(reset, device="cpu"):
+def _is_key(x) -> bool:
+    """Whether ``x`` is an array of JAX PRNG keys (its dtype reads ``key<impl>``)."""
+    return str(getattr(x, "dtype", "")).startswith("key<")
+
+
+def reset_from_jax(reset, device="cpu", generator=None):
     """A ``jax.vmap``-ed env reset ``(state, TimeStep)`` -> one batched port reset.
 
     The vmap gives every leaf the leading env axis the port's batched envs
     carry, so the state (a `SpreadState`, `LbfState`, ... or a stack of
-    them under `EpisodeStats`) and the first `TimeStep` cross as they are.
+    them under `EpisodeStats`) and the first `TimeStep` cross as they are;
+    a state's PRNG keys become ``generator``.
     """
-    state, timestep = params_from_jax(reset, device)
-    sizes = {x.shape[0] if x.dim() else None for x in tree_leaves((state, timestep))}
+    state, timestep = _convert(
+        reset, lambda x: generator if _is_key(x) else _to_tensor(x).to(device), _port_namedtuple
+    )
+    tensors = [x for x in tree_leaves((state, timestep)) if isinstance(x, torch.Tensor)]
+    sizes = {x.shape[0] if x.dim() else None for x in tensors}
     if len(sizes) != 1 or None in sizes:
         raise ValueError(f"a vmap-ed reset leads every leaf with one env axis; got {sizes}")
     return state, timestep
@@ -149,6 +168,21 @@ def buffer_to_jax(state: BufferState):
     """The port's replay table -> the reference's fields as numpy arrays."""
     return BufferState(params_to_jax(state.storage), _jax_count(state.insert_pos, state.lanes),
                        _jax_count(state.size, state.lanes))
+
+
+def seq_buffer_from_jax(state, device="cpu") -> SeqBufferState:
+    """A JAX sequence-replay table (``SeqBufferState``; vmapped over lanes or not) -> the port's."""
+    lanes = None if np.ndim(state.size) == 0 else int(np.shape(state.size)[0])
+    return SeqBufferState(params_from_jax(state.storage, device),
+                          params_from_jax(state.acc, device), _host_count(state.t),
+                          _host_count(state.insert_pos), _host_count(state.size), lanes)
+
+
+def seq_buffer_to_jax(state: SeqBufferState):
+    """The port's sequence-replay table -> the reference's fields as numpy arrays."""
+    count = lambda n: _jax_count(n, state.lanes)
+    return SeqBufferState(params_to_jax(state.storage), params_to_jax(state.acc),
+                          count(state.t), count(state.insert_pos), count(state.size))
 
 
 def _unstack_layers(tree, num_layers):

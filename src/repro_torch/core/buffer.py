@@ -1,19 +1,28 @@
 """The replay table and the on-policy rollout accumulator (port of `repro.core.buffer`).
 
-Two of the reference's experience regimes:
+The reference's three experience regimes:
 
 * `BufferState` — the flat per-step replay table behind the off-policy
   family (``buffer_*``): FIFO overwrite, uniform sampling with
   replacement over the filled rows;
 * `RolloutState` — the time-major ``(rollout_len, num_envs, ...)``
   trajectory (``(rollout_len, S, N, ...)`` with seed lanes) that the
-  trainer consumes whole and then resets (``rollout_*``).
+  trainer consumes whole and then resets (``rollout_*``);
+* `SeqBufferState` — R2D2 sequence replay for recurrent off-policy
+  systems (``seq_*``): every ``stride`` steps, once ``window_len`` steps
+  have come in, the last ``window_len`` rows of each env become one stored
+  window (FIFO at capacity), and sampling draws whole windows,
+  time-major.  The executor's incoming carry rides in the stored rows
+  (``Transition.extras["carry_in"]``), so a window opens from the stored
+  memory.
 
 Unlike the reference, storage is written in place (nothing else holds a
 reference to it), and the cursors (``insert_pos`` and ``size``, the
-rollout's ``t``) are Python ints: they move by the same amount in every
-lane whatever the data, so the runner's update gate reads them without
-waiting on the device.
+rollout's ``t``, the sequence table's step count) are Python ints: they
+move by the same amount in every lane whatever the data, so the runner's
+update gate reads them without waiting on the device.  A sequence table
+writes its windows only on the steps that flush, where the reference
+rewrites the slots every step under a mask.
 """
 from __future__ import annotations
 
@@ -47,31 +56,36 @@ def buffer_init(example_item, capacity: int, device, lanes: Optional[int] = None
     return BufferState(storage=storage, insert_pos=0, size=0, lanes=lanes)
 
 
+def _ring_write(s, x, axis: int, insert_pos: int):
+    """Write ``x``'s rows along ``axis`` into the table ``s`` at ``insert_pos, insert_pos + 1, ...``.
+
+    The rows wrap to the start at the table's end, and are cast to its
+    dtype, as the reference casts them.  More rows than slots leave only
+    the last ``capacity``, where the reference's scatter lets the last
+    write win.
+    """
+    capacity, B = s.shape[axis], x.shape[axis]
+    skip = max(B - capacity, 0)
+    start = (insert_pos + skip) % capacity
+    n = B - skip
+    head = min(n, capacity - start)
+    x = x.narrow(axis, skip, n)
+    s.narrow(axis, start, head).copy_(x.narrow(axis, 0, head))
+    if head < n:
+        s.narrow(axis, 0, n - head).copy_(x.narrow(axis, head, n - head))
+
+
 def buffer_add(state: BufferState, items) -> BufferState:
     """Add a batch of items (leaves ``(B, ...)``, or ``(S, B, ...)``), overwriting FIFO.
 
     The rows go to ``insert_pos, insert_pos + 1, ...`` modulo the
     capacity, so a batch that reaches the end wraps to the start within
-    the one add; each item is cast to its table's dtype, as the reference
-    casts it.
+    the one add.
     """
     axis = 0 if state.lanes is None else 1
     capacity = tree_leaves(state.storage)[0].shape[axis]
     B = tree_leaves(items)[0].shape[axis]
-    # a batch larger than the table leaves only its last `capacity` rows,
-    # where the reference's scatter lets the last write win
-    skip = max(B - capacity, 0)
-    start = (state.insert_pos + skip) % capacity
-    n = B - skip
-    head = min(n, capacity - start)
-
-    def write(s, x):
-        x = x.narrow(axis, skip, n)
-        s.narrow(axis, start, head).copy_(x.narrow(axis, 0, head))
-        if head < n:
-            s.narrow(axis, 0, n - head).copy_(x.narrow(axis, head, n - head))
-
-    tree_map(write, state.storage, items)
+    tree_map(lambda s, x: _ring_write(s, x, axis, state.insert_pos), state.storage, items)
     return state._replace(insert_pos=(state.insert_pos + B) % capacity,
                           size=min(state.size + B, capacity))
 
@@ -86,21 +100,24 @@ def sample_indices(state: BufferState, generator, batch_size: int):
     return lanes_.randint(generator, max(state.size, 1), (*lead, batch_size), device)
 
 
+def _gather_rows(storage, idx, lanes):
+    """Rows ``idx`` of each table: ``(B, ...)``, or ``(S, B, ...)`` with lane tables."""
+    if lanes is None:
+        return tree_map(lambda s: s.index_select(0, idx), storage)
+    capacity = tree_leaves(storage)[0].shape[1]
+    offsets = torch.arange(lanes, device=idx.device)[:, None] * capacity
+    flat = (idx + offsets).flatten()
+    return tree_map(lambda s: s.flatten(0, 1).index_select(0, flat).unflatten(0, idx.shape),
+                    storage)
+
+
 def buffer_sample(state: BufferState, generator, batch_size: int):
     """Uniform sample with replacement over the filled region.
 
     Leaves ``(batch_size, ...)``, or ``(S, batch_size, ...)`` with lanes:
     lane ``s`` samples its own table with its own generator.
     """
-    idx = sample_indices(state, generator, batch_size)
-    if state.lanes is None:
-        return tree_map(lambda s: s.index_select(0, idx), state.storage)
-    capacity = tree_leaves(state.storage)[0].shape[1]
-    offsets = torch.arange(state.lanes, device=idx.device)[:, None] * capacity
-    flat = (idx + offsets).flatten()
-    return tree_map(
-        lambda s: s.flatten(0, 1).index_select(0, flat).unflatten(0, idx.shape), state.storage
-    )
+    return _gather_rows(state.storage, sample_indices(state, generator, batch_size), state.lanes)
 
 
 def buffer_can_sample(state: BufferState, min_size: int) -> bool:
@@ -154,3 +171,106 @@ def rollout_take(state: RolloutState):
 def rollout_reset(state: RolloutState) -> RolloutState:
     """Consume: rewind the cursor (storage is overwritten in place)."""
     return RolloutState(storage=state.storage, t=0)
+
+
+# ------------------------------------------------------------ sequence replay
+
+
+class SeqBufferState(NamedTuple):
+    """Sequence-replay table: stored windows, and a ring of the live step stream.
+
+    ``storage`` leaves are ``(capacity, window_len, ...)`` windows and
+    ``acc`` leaves the ``(window_len, num_envs, ...)`` ring; with ``lanes``
+    both lead with the lane axis, ``(S, capacity, window_len, ...)`` and
+    ``(S, window_len, num_envs, ...)``, one table a lane.  ``t`` counts the
+    steps observed, and ``size`` is a function of it alone
+    (`seq_expected_size`).
+    """
+
+    storage: Any
+    acc: Any
+    t: int
+    insert_pos: int
+    size: int
+    lanes: Optional[int] = None
+
+
+def seq_init(example_item, capacity: int, window_len: int, num_envs, device) -> SeqBufferState:
+    """A fresh table of ``capacity`` windows of ``window_len`` steps.
+
+    ``example_item``: a pytree of tensors with per-item shapes and dtypes
+    (for recurrent systems a `Transition` whose extras carry the per-step
+    ``carry_in``).  ``num_envs`` is the batch of one step: ``N``, or
+    ``(S, N)`` for seed lanes; each flush stores one window an env.
+    """
+    batch = (num_envs,) if isinstance(num_envs, int) else tuple(num_envs)
+    lanes = batch[0] if len(batch) == 2 else None
+    lead = () if lanes is None else (lanes,)
+    storage = tree_map(
+        lambda x: torch.zeros((*lead, capacity, window_len, *x.shape), dtype=x.dtype,
+                              device=device), example_item)
+    acc = tree_map(
+        lambda x: torch.zeros((*lead, window_len, batch[-1], *x.shape), dtype=x.dtype,
+                              device=device), example_item)
+    return SeqBufferState(storage, acc, t=0, insert_pos=0, size=0, lanes=lanes)
+
+
+def seq_add(state: SeqBufferState, items, *, stride: int) -> SeqBufferState:
+    """Append one vectorised step (leaves ``(N, ...)``, or ``(S, N, ...)``); flush windows.
+
+    The step lands in the ring; once ``window_len`` steps have come in,
+    every ``stride``-th step flushes it: the last ``window_len`` rows of
+    each env, in time order, become windows at ``insert_pos, insert_pos +
+    1, ...`` modulo the capacity.  ``stride < window_len`` makes
+    consecutive windows overlap by ``window_len - stride`` steps.  Whether
+    a step flushes depends on the step count alone.
+    """
+    axis = 0 if state.lanes is None else 1  # the ring's time axis, the table's slot axis
+    window_len, num_envs = tree_leaves(state.acc)[0].shape[axis:axis + 2]
+    capacity = tree_leaves(state.storage)[0].shape[axis]
+    pos = state.t % window_len
+    tree_map(lambda a, x: a.select(axis, pos).copy_(x), state.acc, items)
+    t1 = state.t + 1
+    if t1 < window_len or (t1 - window_len) % stride:
+        return state._replace(t=t1)
+    # a window an env, in time order: the ring rotated to start after pos
+    # (two slices: an index list would be copied to the device, a wait)
+    cut = (pos + 1) % window_len
+
+    def flush(s, a):
+        windows = torch.cat([a.narrow(axis, cut, window_len - cut), a.narrow(axis, 0, cut)],
+                            dim=axis).movedim(axis, axis + 1)
+        _ring_write(s, windows, axis, state.insert_pos)
+
+    tree_map(flush, state.storage, state.acc)
+    return state._replace(t=t1, insert_pos=(state.insert_pos + num_envs) % capacity,
+                          size=min(state.size + num_envs, capacity))
+
+
+def seq_sample(state: SeqBufferState, generator, batch_size: int):
+    """``batch_size`` whole windows, uniform with replacement, time-major.
+
+    Leaves ``(window_len, batch_size, ...)``, or ``(window_len, S,
+    batch_size, ...)`` with lanes: the layout BPTT trainers consume from a
+    rollout, stored ``extras["carry_in"]`` rows included.  The window
+    indices come from `sample_indices`, as the flat table's rows do.
+    """
+    windows = _gather_rows(state.storage, sample_indices(state, generator, batch_size),
+                           state.lanes)
+    axis = 0 if state.lanes is None else 1
+    return tree_map(lambda x: x.movedim(axis + 1, 0), windows)
+
+
+def seq_can_sample(state: SeqBufferState, min_windows: int) -> bool:
+    """True once ``min_windows`` windows are stored (a host-side test)."""
+    return state.size >= min_windows
+
+
+def seq_expected_size(t: int, capacity: int, window_len: int, num_envs: int, stride: int) -> int:
+    """The closed-form ``size`` after ``t`` `seq_add` calls.
+
+    ``t`` steps flush ``max(0, (t - window_len) // stride + 1)`` times,
+    ``num_envs`` windows each, capped at ``capacity``.
+    """
+    flushes = max(0, (t - window_len) // stride + 1)
+    return min(num_envs * flushes, capacity)

@@ -1,12 +1,16 @@
 """Batched multi-agent envs, the wrapper stack and the registry (port of `repro.envs`).
 
-`REGISTRY` lists the envs ported so far; `make_env` raises `KeyError` for
-any other name, as the reference does for an unknown one.
+`REGISTRY` holds the reference's seven envs under its names; `make_env`
+raises `KeyError` for any other name, as the reference does.
 """
 from repro_torch.envs.api import ArraySpec, DiscreteSpec, EnvSpec, StepType, TimeStep
 from repro_torch.envs.lbf import LevelBasedForaging
 from repro_torch.envs.matrix_game import MatrixGame
+from repro_torch.envs.robot_warehouse import RobotWarehouse
+from repro_torch.envs.smax_lite import SmaxLite
+from repro_torch.envs.speaker_listener import SpeakerListener
 from repro_torch.envs.spread import Spread
+from repro_torch.envs.switch_game import SwitchGame
 from repro_torch.envs.wrappers import (
     AgentIdObs,
     AutoReset,
@@ -32,7 +36,11 @@ def _gridworld(cls):
 
 REGISTRY = {
     "matrix_game": MatrixGame,
+    "switch_game": SwitchGame,
     "spread": Spread,
+    "speaker_listener": SpeakerListener,
+    "smax_lite": SmaxLite,
+    "robot_warehouse": _gridworld(RobotWarehouse),
     "lbf": _gridworld(LevelBasedForaging),
 }
 
@@ -55,8 +63,12 @@ __all__ = [
     "LevelBasedForaging",
     "MatrixGame",
     "REGISTRY",
+    "RobotWarehouse",
+    "SmaxLite",
+    "SpeakerListener",
     "Spread",
     "StepType",
+    "SwitchGame",
     "TimeStep",
     "Wrapper",
     "make_env",

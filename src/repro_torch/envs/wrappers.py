@@ -24,9 +24,16 @@ from repro_torch.tree import tree_map
 
 
 def _where(mask, new, old):
-    """Leafwise select along the leading env axis."""
+    """Leafwise select along the leading env axis.
+
+    A leaf that is not a tensor (the generator an env that draws inside
+    `step` keeps in its state) is the old one: a reset hands back the
+    generator it was given, which is the one the env already holds.
+    """
 
     def sel(n, o):
+        if not isinstance(o, torch.Tensor):
+            return o
         return torch.where(mask.reshape(mask.shape + (1,) * (o.dim() - 1)), n, o)
 
     return tree_map(sel, new, old)

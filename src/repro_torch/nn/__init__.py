@@ -4,6 +4,7 @@ from repro_torch.nn.layers import MLP, Dense, GRUCell
 from repro_torch.nn.recurrent import (
     LinearScannedRNN,
     ScannedRNN,
+    burn_in_carry,
     make_core,
     reset_carry,
     window_start_carry,
@@ -15,6 +16,7 @@ __all__ = [
     "LinearScannedRNN",
     "MLP",
     "ScannedRNN",
+    "burn_in_carry",
     "initializers",
     "make_core",
     "reset_carry",

@@ -4,8 +4,9 @@ Two interchangeable cores share the ``(carry, inputs) -> (carry, outputs)``
 contract: `ScannedRNN` (GRU; its unroll is a Python loop over time) and
 `LinearScannedRNN` (gated-linear; its unroll is one call of the
 `repro_torch.kernels.recurrent_scan` op, the CUDA kernel on a GPU).
-`reset_carry` is the one reset-masking rule and `window_start_carry` the
-one rule for the memory a BPTT window opens with.
+`reset_carry` is the one reset-masking rule, `window_start_carry` the
+one rule for the memory a BPTT window opens with, and `burn_in_carry`
+the R2D2 warm-up of that memory over a replayed window's prefix.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from repro_torch.kernels.recurrent_scan import linear_recurrent_scan
 from repro_torch.nn.layers import Dense, GRUCell
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +98,9 @@ class LinearScannedRNN:
         a, b = self._gates(params, xs)
         # seed-lane params give lane-major products (`nn.layers.affine`);
         # the scan wants its (T, ..., H) operands laid out time-major
+        # (replayed windows arrive time-major as strided views of the table)
+        if resets is not None:
+            resets = resets.contiguous()
         hs = linear_recurrent_scan(a.contiguous(), b.contiguous(), carry.contiguous(), resets)
         return hs[-1], hs
 
@@ -139,3 +143,19 @@ def window_start_carry(extras, initial_carry, batch_shape, device):
     if "carry_in" in extras:
         return tree_map(lambda x: x[0], extras["carry_in"])
     return initial_carry(batch_shape, device)
+
+
+def burn_in_carry(unroll, carry, xs, resets):
+    """Warm a replayed window's start memory over its burn-in prefix, with no gradient.
+
+    ``unroll`` is the caller's ``(carry, xs, resets) -> (carry, outputs)``
+    closure (one agent's encoder -> core stack); ``xs`` / ``resets`` are
+    the prefix rows, time-major.  The prefix runs under
+    `torch.no_grad`, so nothing it launches is kept for a backward pass,
+    and the carry comes back detached: training shapes the suffix only.
+    A zero-length prefix hands back the (detached) carry as it is.
+    """
+    if tree_leaves(xs)[0].shape[0] > 0:
+        with torch.no_grad():
+            carry, _ = unroll(carry, xs, resets)
+    return tree_map(lambda x: x.detach(), carry)

@@ -59,14 +59,19 @@ class OffPolicyConfig:
     updates_per_step: int = 1
 
 
-def eps_at(cfg: OffPolicyConfig, steps: int) -> float:
-    """The linearly decayed exploration epsilon after ``steps`` updates.
+def linear_eps(start: float, end: float, decay: int, steps: int) -> float:
+    """Epsilon decayed linearly from ``start`` to ``end`` over ``decay`` updates, after ``steps``.
 
     Computed in float32 on the host, as the reference computes it on the
     device.
     """
-    frac = np.clip(np.float32(steps) / np.float32(cfg.eps_decay_steps), 0.0, 1.0)
-    return float(np.float32(cfg.eps_start) + frac * np.float32(cfg.eps_end - cfg.eps_start))
+    frac = np.clip(np.float32(steps) / np.float32(decay), 0.0, 1.0)
+    return float(np.float32(start) + frac * np.float32(end - start))
+
+
+def eps_at(cfg: OffPolicyConfig, steps: int) -> float:
+    """The exploration epsilon after ``steps`` updates (`linear_eps` of the config)."""
+    return linear_eps(cfg.eps_start, cfg.eps_end, cfg.eps_decay_steps, steps)
 
 
 def _explore_draws(generator, batch_shape, num_actions, device):

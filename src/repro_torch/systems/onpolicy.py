@@ -157,13 +157,16 @@ def _value_and_grad(fn, params, *args):
     """``(fn(params, *args), d fn / d params)`` with grads as a params-shaped tree.
 
     Per-lane losses ``(S,)`` are summed for the backward pass: lanes share
-    no parameter, so each lane's gradient is that of its own loss.
+    no parameter, so each lane's gradient is that of its own loss.  A
+    parameter the loss does not read gets zeros, as ``jax.grad`` gives it
+    (DIAL's message head in its no-channel ablation).
     """
     with torch.enable_grad():
         p = tree_map(lambda x: x.detach().requires_grad_(True), params)
         loss = fn(p, *args)
         leaves = tree_leaves(p)
-        grads = dict(zip(map(id, leaves), torch.autograd.grad(loss.sum(), leaves)))
+        grads = dict(zip(map(id, leaves), torch.autograd.grad(loss.sum(), leaves,
+                                                              materialize_grads=True)))
     return loss.detach(), tree_map(lambda x: grads[id(x)], p)
 
 

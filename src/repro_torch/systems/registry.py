@@ -1,17 +1,15 @@
 """The system registry: the ported algorithms behind one constructor.
 
-Port of `repro.systems.registry`: a name -> `SystemEntry` table plus
-``make_system(name, env, **overrides)`` and ``make_pair(system, env)``, so
-the launcher and user code build every system the same way.  Each entry
-declares the action regime its algorithm supports, and the env's spec is
-checked against that, not its name; ``make_pair`` turns on an env's
-continuous mode when a continuous-control system asks for it.
-
-`REGISTRY` lists the systems ported so far, and the env registry the envs
-ported so far.  ``compatibility(system, env)`` answers whether a (system,
-env) cell runs and why not: the reference's reason for a spec mismatch,
-or a plain "not ported" reason for a system or env the reference has and
-the port does not.  It never builds half a system.
+Port of `repro.systems.registry`: a name -> `SystemEntry` table of the
+reference's thirteen systems plus ``make_system(name, env, **overrides)``
+and ``make_pair(system, env)``, so the launcher and user code build every
+system the same way.  Each entry declares the action regime its algorithm
+supports and whether it needs homogeneous agents (DIAL's shared recurrent
+weights); the env's spec is checked against that, not its name.
+``make_pair`` turns on an env's continuous mode when a continuous-control
+system asks for it.  ``compatibility(system, env)`` answers whether a
+(system, env) cell runs and why not, in the reference's words, without
+building anything.
 """
 from __future__ import annotations
 
@@ -21,6 +19,7 @@ from typing import Any, Callable, Dict, Optional
 
 from repro_torch.envs import REGISTRY as ENV_REGISTRY
 from repro_torch.envs.api import DiscreteSpec, EnvSpec
+from repro_torch.systems.dial import DialConfig, make_dial
 from repro_torch.systems.maddpg import MaddpgConfig, make_mad4pg, make_maddpg
 from repro_torch.systems.madqn import make_madqn
 from repro_torch.systems.offpolicy import OffPolicyConfig
@@ -32,18 +31,8 @@ from repro_torch.systems.onpolicy import (
     make_rec_mappo,
 )
 from repro_torch.systems.qmix import make_qmix
+from repro_torch.systems.rec_madqn import RecMadqnConfig, make_rec_madqn
 from repro_torch.systems.vdn import make_vdn
-
-# The reference's registries, for "not ported" reasons (repro.systems.REGISTRY
-# and repro.envs.REGISTRY; copied here so the port imports nothing of it).
-REFERENCE_SYSTEMS = (
-    "dial", "ippo", "mad4pg", "maddpg", "madqn", "madqn-fp", "mappo", "qmix",
-    "rec_ippo", "rec_madqn", "rec_mappo", "rial", "vdn",
-)
-REFERENCE_ENVS = (
-    "lbf", "matrix_game", "robot_warehouse", "smax_lite", "speaker_listener", "spread",
-    "switch_game",
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +42,7 @@ class SystemEntry:
     factory: Callable[[Any, Any], Any]  # (env, cfg) -> System
     config_cls: type
     action_space: str = "discrete"  # "discrete" | "continuous"
+    homogeneous_only: bool = False  # shared-weight recurrent systems
     description: str = ""
 
 
@@ -97,9 +87,21 @@ REGISTRY: Dict[str, SystemEntry] = {
         make_rec_ippo, PPOConfig,
         description="recurrent IPPO (memory cores, partial observability)",
     ),
+    "rec_madqn": SystemEntry(
+        make_rec_madqn, RecMadqnConfig,
+        description="recurrent MADQN over R2D2 sequence replay (stored-carry windows, burn-in)",
+    ),
     "rec_mappo": SystemEntry(
         make_rec_mappo, PPOConfig,
         description="recurrent MAPPO (memory cores + centralised recurrent critics)",
+    ),
+    "dial": SystemEntry(
+        make_dial, DialConfig, homogeneous_only=True,
+        description="differentiable inter-agent communication",
+    ),
+    "rial": SystemEntry(
+        _with(make_dial, protocol="rial"), DialConfig, homogeneous_only=True,
+        description="RIAL baseline (Q-learned discrete channel)",
     ),
 }
 
@@ -116,19 +118,28 @@ def env_action_space(spec: EnvSpec) -> str:
     return kinds.pop() if len(kinds) == 1 else "mixed"
 
 
-def _support_reason(system_name: str, action_space: str, spec: EnvSpec) -> Optional[str]:
+def env_is_homogeneous(spec: EnvSpec) -> bool:
+    """True when every agent shares one (observation shape, action spec) signature."""
+    return len({(spec.observations[a].shape, repr(spec.actions[a])) for a in spec.agent_ids}) == 1
+
+
+def _support_reason(system_name: str, action_space: str, homogeneous_only: bool,
+                    spec: EnvSpec) -> Optional[str]:
     env_kind = env_action_space(spec)
     if env_kind != action_space:
         return (
             f"{system_name} supports {action_space} action spaces; "
             f"env has {env_kind} actions"
         )
+    if homogeneous_only and not env_is_homogeneous(spec):
+        return f"{system_name} requires homogeneous agents (shared weights)"
     return None
 
 
 def check_support(system_name: str, spec: EnvSpec) -> Optional[str]:
     """None when the system supports this env spec, else the reason not."""
-    return _support_reason(system_name, REGISTRY[system_name].action_space, spec)
+    entry = REGISTRY[system_name]
+    return _support_reason(system_name, entry.action_space, entry.homogeneous_only, spec)
 
 
 def _env_supports_continuous(env_name: str) -> bool:
@@ -151,24 +162,17 @@ def _env_kwargs_for(system_name: str, env_name: str, env_kwargs=None) -> dict:
     return kwargs
 
 
-def _not_ported(system_name: str, env_name: str) -> Optional[str]:
-    """The reason a name the reference knows cannot run here, or None."""
-    for kind, name, ours, theirs in (
-        ("system", system_name, REGISTRY, REFERENCE_SYSTEMS),
-        ("env", env_name, ENV_REGISTRY, REFERENCE_ENVS),
-    ):
-        if name not in ours:
-            if name not in theirs:
-                raise KeyError(f"unknown {kind} {name!r}; registered: {sorted(ours)}")
-            return f"{kind} {name!r} is not ported yet"
-    return None
+def _known(system_name: str, env_name: str):
+    """Raise `KeyError` for a system or env name neither registry holds."""
+    if system_name not in REGISTRY:
+        raise KeyError(f"unknown system {system_name!r}; registered: {sorted(REGISTRY)}")
+    if env_name not in ENV_REGISTRY:
+        raise KeyError(f"unknown env {env_name!r}; registered: {sorted(ENV_REGISTRY)}")
 
 
 def compatibility(system_name: str, env_name: str, env_kwargs=None) -> Optional[str]:
-    """None when the (system, env) cell runs in the port, else the reason not."""
-    reason = _not_ported(system_name, env_name)
-    if reason is not None:
-        return reason
+    """None when the (system, env) cell runs, else the reason not."""
+    _known(system_name, env_name)
     try:
         kwargs = _env_kwargs_for(system_name, env_name, env_kwargs)
     except ValueError as e:
@@ -194,7 +198,7 @@ def make_system(name: str, env, **overrides):
         raise ValueError(f"incompatible system/env: {reason}")
     system = entry.factory(env, entry.config_cls(**overrides))
     # post-build: the System's own declaration must agree with its entry
-    reason = _support_reason(name, system.action_space, system.spec)
+    reason = _support_reason(name, system.action_space, entry.homogeneous_only, system.spec)
     if reason is not None:
         raise ValueError(f"incompatible system/env: {reason}")
     return system
@@ -207,10 +211,7 @@ def make_pair(system_name: str, env_name: str, *, env_kwargs: Optional[dict] = N
     A continuous-control system turns on the env's ``continuous=True``
     construction flag when the env has one (spec-checked afterwards).
     """
-    if system_name not in REGISTRY:
-        raise KeyError(f"unknown system {system_name!r}; registered: {sorted(REGISTRY)}")
-    if env_name not in ENV_REGISTRY:
-        raise KeyError(f"unknown env {env_name!r}; registered: {sorted(ENV_REGISTRY)}")
+    _known(system_name, env_name)
     kwargs = _env_kwargs_for(system_name, env_name, env_kwargs)
     env = ENV_REGISTRY[env_name](**kwargs)
     return env, make_system(system_name, env, **overrides)

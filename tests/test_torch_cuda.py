@@ -28,7 +28,13 @@ IPPO update on the card must match the same update on the CPU at 1e-4,
 rec-MAPPO's with no more scan launches than one lane needs.  Every
 replay system's training iteration (act, write the table, update, a hard
 target sync among them) runs under `torch.cuda.set_sync_debug_mode`
-("error"): it never waits on the card.
+("error"): it never waits on the card; so do rec-MADQN's (the sequence
+table, both cores, per-agent stacks on speaker_listener), DIAL's and
+RIAL's (the rollout, the message carry) and a replay system's on each of
+the four envs that draw at reset or inside ``step`` (switch_game's next
+prisoner, robot_warehouse's re-requests).  A linear-core rec-MADQN update
+and a fused no-channel DIAL update launch the recurrent-scan kernel as
+often as their unrolls say.
 """
 import pytest
 
@@ -198,6 +204,77 @@ def test_replay_iterations_never_wait_on_the_card(cuda, name, env):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert st.train.steps == 5 and st.buffer.size == 8 * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,env,overrides", [
+    ("rec_madqn", "spread", {"recurrent_core": "linear"}),
+    ("rec_madqn", "speaker_listener", {}),
+    ("dial", "switch_game", {}),
+    ("rial", "switch_game", {}),
+    ("dial", "switch_game", {"use_comm": False, "recurrent_core": "linear"}),
+    ("madqn", "switch_game", {}), ("madqn", "speaker_listener", {}),
+    ("vdn", "smax_lite", {}), ("qmix", "robot_warehouse", {}),
+])
+def test_matrix_iterations_never_wait_on_the_card(cuda, name, env, overrides):
+    from repro_torch.core.system import _one_iteration, _training_env, init_system_state
+    from repro_torch.core.system import seed_generators
+    from repro_torch.systems.registry import REGISTRY, make_pair
+
+    config = REGISTRY[name].config_cls.__name__
+    kw = {
+        "RecMadqnConfig": dict(hidden_sizes=(16,), seq_len=2, burn_in=1, batch_size=4,
+                               buffer_capacity=32, min_windows=4, target_update_period=2),
+        "DialConfig": dict(hidden_dim=16, rollout_len=2, target_update_period=2),
+        "OffPolicyConfig": dict(hidden_sizes=(16, 16), batch_size=8, buffer_capacity=64,
+                                min_replay=16, target_update_period=2),
+    }[config]
+    # short episodes: they end and restart among the checked iterations
+    env_kwargs = {} if env == "switch_game" else {"horizon": 3}
+    _, system = make_pair(name, env, env_kwargs=env_kwargs, **dict(kw, **overrides))
+    tenv = _training_env(system.env)
+    st = init_system_state(system, seed_generators(0, 2, cuda), 4, tenv)
+    for _ in range(4):  # the dataset is ready by the 4th iteration; its update warms up
+        st, _, _ = _one_iteration(system, tenv, st)
+    before = st.train.steps if isinstance(st.train.steps, int) else None
+    assert before is not None and before >= 1
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(4):
+            st, _, _ = _one_iteration(system, tenv, st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.train.steps > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,env,expected", [
+    # the agents' shared stack: online burn-in, suffix forward and backward,
+    # target burn-in and suffix
+    ("rec_madqn", "spread", 5),
+    # the fused re-run of every agent: online forward and backward, the target's forward
+    ("dial", "switch_game", 3),
+])
+def test_linear_core_updates_launch_the_scan_kernel(cuda, name, env, expected):
+    from repro_torch.core.system import _step_phase, _training_env, init_system_state
+    from repro_torch.core.system import seed_generators
+    from repro_torch.systems.registry import make_pair
+
+    kw = dict(recurrent_core="linear")
+    kw.update(dict(hidden_sizes=(16,), seq_len=3, burn_in=2, batch_size=4, min_windows=2)
+              if name == "rec_madqn" else dict(hidden_dim=16, use_comm=False))
+    _, system = make_pair(name, env, **kw)
+    tenv = _training_env(system.env)
+    st = init_system_state(system, seed_generators(0, 2, cuda), 4, tenv)
+    with torch.no_grad():
+        while not system.can_sample(st.buffer):
+            st, _ = _step_phase(system, tenv, st)
+    before = linear_recurrent_scan.launches
+    train, _, m = system.update(st.train, st.buffer, st.key)
+    torch.cuda.synchronize()
+    # the seed lanes fold into the kernel's D axis and add no launch
+    assert linear_recurrent_scan.launches - before == expected
+    assert m["loss"].shape == (2,) and bool(torch.isfinite(m["loss"]).all())
 
 
 def _scan_inputs(b, S, di, N, dtype, device, seed=0):

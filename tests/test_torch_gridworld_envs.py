@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro.envs import grid as jgrid  # noqa: E402
+from repro.envs import REGISTRY as JAX_ENVS  # noqa: E402
 from repro.envs import make_env as jax_make_env  # noqa: E402
 from repro.envs.spread import Spread as JaxSpread  # noqa: E402
 from repro.envs.wrappers import EpisodeStats as JaxEpisodeStats  # noqa: E402
@@ -203,6 +204,10 @@ def test_agent_id_and_concat_obs_state_wrappers():
 
 @pytest.mark.parametrize("name", ["smax_lite", "no_such_env"])
 def test_make_env_raises_on_unported_or_unknown_names(name):
+    # every env of the reference is ported: only a name it does not know raises
+    unknown = name if name not in REGISTRY else f"{name}_v2"
     with pytest.raises(KeyError, match="registered"):
-        make_env(name)
-    assert sorted(REGISTRY) == ["lbf", "matrix_game", "spread"]
+        make_env(unknown)
+    assert sorted(REGISTRY) == sorted(JAX_ENVS)
+    if name in REGISTRY:
+        assert make_env(name).spec().agent_ids == jax_make_env(name).spec().agent_ids
