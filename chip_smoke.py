@@ -89,7 +89,7 @@ headline loop):
     spread at PPOConfig's defaults and the registry's env defaults, 8
     seeds as lanes of one batch x 256 envs x 256 iterations (2 updates a
     lane), a greedy evaluation of 32 episodes a lane every 128 iterations,
-    3 runs each: losses (8, 2) and eval returns (8, 2, 32) finite, env
+    2 runs each: losses (8, 2) and eval returns (8, 2, 32) finite, env
     steps/s (median, min, max), rec-MAPPO's recurrent_scan launches what
     one lane's updates need;
 16. the same 8 ippo seeds one run after another: the batched/serial
@@ -110,7 +110,7 @@ slice; no kernel lies on its path:
 20. train: vdn on spread, qmix on lbf, madqn-fp on matrix_game and mad4pg
     on continuous spread at the registry's defaults (OffPolicyConfig,
     MaddpgConfig), 8 seed lanes x 256 envs x 256 iterations with a greedy
-    evaluation of 32 episodes a lane every 128, 3 runs each, and maddpg on
+    evaluation of 32 episodes a lane every 128, 2 runs each, and maddpg on
     continuous spread once: an update every iteration from the one that
     fills the table to min_replay, losses and eval returns finite, env
     steps/s (median, min, max);
@@ -132,7 +132,7 @@ speaker_listener, smax_lite, robot_warehouse), the eighth slice:
     x 8 lanes, and with the 3 agents of a shared stack folded in (B =
     768 and 6144); its time at rec-MADQN's suffix (T=8, B=768) beside
     its bound;
-25. train: rec_madqn (linear core) on spread and dial on switch_game (3
+25. train: rec_madqn (linear core) on spread and dial on switch_game (2
     runs each), rec_madqn (GRU, per-agent stacks) on speaker_listener,
     rial and the fused no-channel dial (linear core) on switch_game, vdn
     on smax_lite and ippo on robot_warehouse, at the registry's
@@ -149,6 +149,28 @@ speaker_listener, smax_lite, robot_warehouse), the eighth slice:
     tests/test_seq_replay.py:279 (rec-MADQN, climbing game, 5,000
     iterations x 8 envs), tests/test_marl_modules.py:98 and :105 (DIAL
     not diverging over 60 updates, RIAL improving over 120).
+
+The distributed runners (the async actor/learner runner with V-trace, and
+the sharded runner on torch.distributed), the ninth slice; recurrent_scan
+lies on rec-IPPO's updates under them and on V-trace's actor re-run:
+
+28. train: the async runner on ippo/spread at PPOConfig's defaults (a
+    chunk is one 128-step rollout) at 1, 2 and 4 actors of 256 envs x 256
+    iterations each (3 runs at 4 actors), beside anakin on the same config
+    before and after: env steps/s, updates, queue depth, staleness,
+    dropped chunks; rec-IPPO (linear core, matrix_game) through it at 2
+    actors, without V-trace and with it at param_sync_every 2, its
+    recurrent_scan launches what its updates' unrolls need (130 and 132
+    an update); vdn/spread at 2 actors, unroll 8; V-trace ippo at
+    param_sync_every 4 with its staleness trace 0, 1, 2, 3, 0, ...;
+29. pins: at one actor, a sync every tick and anakin's cadence the async
+    run equals anakin on the card (ippo, rec-IPPO linear, vdn at unroll
+    1; max difference held at 1e-5); a V-trace ippo update with stale
+    behaviour log-probs on the card vs the CPU (held as in 18);
+30. the sharded runner at one rank on NCCL (ippo/spread, madqn/
+    matrix_game, each run twice in one spawned rank, beside anakin), two
+    gloo ranks sharing cuda:0 (Adam moments equal bitwise, each rank's
+    own params), and the MARL launcher's --runner async on the card.
 
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
@@ -233,7 +255,8 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 4096
 MARL_SEEDS, MARL_ENVS, MARL_ITERATIONS, MARL_EVAL_EVERY, MARL_EPISODES = 8, 256, 256, 128, 32
 MARL_RUNS = [("ippo", "spread", {}), ("mappo", "lbf", {}),
              ("rec_mappo", "spread", {"recurrent_core": "linear"})]
-MARL_REPEATS = 3
+# 3 runs each until the distributed phase came (PR 19): 2 keep the whole run near ~430 s
+MARL_REPEATS = REPLAY_REPEATS = 2
 # rec-MAPPO's unrolls with the seed lanes folded into the kernel's D axis:
 # (T, lanes x 64 envs, H) a minibatch and (T, lanes x 256 envs, H) the bootstrap
 MARL_PATH_SHAPES = [(128, MARL_SEEDS * MARL_ENVS // 4, 64), (128, MARL_SEEDS * MARL_ENVS, 64)]
@@ -250,9 +273,9 @@ REPLAY_MILESTONE_CFG = dict(buffer_capacity=5_000, min_replay=100, batch_size=32
 # smax_lite, robot_warehouse) at the registry's defaults, 8 seed lanes x 256 envs x 256
 # iterations like the MARL phase: (label, system, env, config overrides, runs)
 MATRIX_RUNS = [
-    ("rec_madqn linear", "rec_madqn", "spread", {"recurrent_core": "linear"}, 3),
+    ("rec_madqn linear", "rec_madqn", "spread", {"recurrent_core": "linear"}, 2),
     ("rec_madqn gru", "rec_madqn", "speaker_listener", {}, 1),
-    ("dial", "dial", "switch_game", {}, 3),
+    ("dial", "dial", "switch_game", {}, 2),
     ("rial", "rial", "switch_game", {}, 1),
     ("dial fused", "dial", "switch_game", {"use_comm": False, "recurrent_core": "linear"}, 1),
     ("vdn", "vdn", "smax_lite", {}, 1),
@@ -270,6 +293,17 @@ REC_MADQN_SUFFIX = (8, 3 * 32 * MARL_SEEDS, 64)  # the shape its kernel time is 
 REC_MADQN_MILESTONE_CFG = dict(hidden_sizes=(32,), learning_rate=1e-3, seq_len=5, burn_in=2,
                                buffer_capacity=1024, batch_size=32, min_windows=64,
                                eps_decay_steps=3000, target_update_period=100)
+# the distributed runners: the async actor/learner runner on ippo/spread at PPOConfig's
+# defaults (a chunk is one 128-step rollout) at 1 / 2 / 4 actors, each actor stepping 256
+# envs for 256 iterations (3 runs at 4 actors), beside anakin on the same config; the
+# sharded runner at one rank on NCCL
+ASYNC_ENVS, ASYNC_ITERATIONS, ASYNC_ACTORS, ASYNC_REPEATS = 256, 256, (1, 2, 4), 3
+VTRACE_CLIPS = dict(use_vtrace=True, vtrace_clip_rho=0.9, vtrace_clip_c=0.8)
+# the staleness-0 pins' small configs (tests/test_torch_async.py)
+PIN_PPO = dict(hidden_sizes=(32, 32), rollout_len=8, epochs=1, num_minibatches=2)
+PIN_VDN = dict(hidden_sizes=(32, 32), batch_size=32, buffer_capacity=5_000, min_replay=64)
+PIN_TOL = 1e-5
+SHARDED_RUNS = [("ippo", "spread"), ("madqn", "matrix_game")]
 
 
 def _require(cond, msg):
@@ -594,7 +628,7 @@ def marl_train(ops):
         steps = MARL_ITERATIONS * MARL_ENVS * MARL_SEEDS
         rates = sorted(steps / w for w in walls)
         rows[name] = {
-            "env": env, "walls_s": walls, "env_steps_per_s": rates[len(rates) // 2],
+            "env": env, "walls_s": walls, "env_steps_per_s": statistics.median(rates),
             "env_steps_per_s_min": rates[0], "env_steps_per_s_max": rates[-1],
             "losses": metrics["loss"].mean(0).tolist(),
             "eval_return": evals.episode_return.mean((0, 2)).tolist(),
@@ -637,10 +671,13 @@ def marl_milestone():
     return {"first15": first, "last15": late, "wall_s": wall}
 
 
-def marl_update_parity(name, overrides):
+def marl_update_parity(name, overrides, stale=False):
     """One seed-lane update of ``name`` on spread from the same state, on the card and the CPU.
 
-    Held at ``SLICE_TOL``: the first minibatch's per-lane loss and
+    With ``stale`` the stored behaviour log-probs move off the acting
+    policy's by seeded noise in [-0.6, 0.6), as a stale actor's would
+    (what a ``use_vtrace`` update corrects).  Held at ``SLICE_TOL``: the
+    first minibatch's per-lane loss and
     gradients, the params after the first optimizer step, and the update's
     mean loss.  Over an update's later steps Adam turns gradient
     components that rounding leaves near zero into steps of about the
@@ -662,6 +699,10 @@ def marl_update_parity(name, overrides):
     with torch.no_grad():
         for _ in range(cfg.rollout_len):
             st, _ = _step_phase(system, tenv, st)
+        if stale:
+            noise = torch.Generator().manual_seed(1)
+            for x in st.buffer.storage.extras["logp"].values():
+                x.add_((torch.rand(x.shape, generator=noise) * 1.2 - 0.6).to(x.device))
     # feed-forward PPO shuffles the flattened (T * envs) rows, recurrent PPO the envs
     rows = st.buffer.storage.discount.shape[0] * envs
     g = torch.Generator().manual_seed(0)
@@ -731,7 +772,7 @@ def replay_train():
     """This slice's path: the replay family, 8 seeds as lanes of one batch.
 
     vdn on spread, qmix on lbf, madqn-fp on matrix_game and mad4pg on
-    continuous spread (3 runs each), and maddpg on continuous spread (one
+    continuous spread (2 runs each), and maddpg on continuous spread (one
     run), at the registry's defaults: 256 envs x 8 seeds x 256 iterations
     with a greedy evaluation of 32 episodes a lane every 128 iterations.
     Once the table holds ``min_replay`` rows every iteration updates, so
@@ -745,7 +786,7 @@ def replay_train():
         _, system = make_pair(name, env)
         cfg = _replay_config(name)
         walls = []
-        for _ in range(MARL_REPEATS if name != "maddpg" else 1):
+        for _ in range(REPLAY_REPEATS if name != "maddpg" else 1):
             (state, metrics, evals), wall = _marl_run(system, MARL_SEEDS)
             walls.append(wall)
         # the iteration whose rows fill the table to min_replay updates, and every later one
@@ -767,7 +808,7 @@ def replay_train():
         steps = MARL_ITERATIONS * MARL_ENVS * MARL_SEEDS
         rates = sorted(steps / w for w in walls)
         rows[name] = {
-            "env": env, "walls_s": walls, "env_steps_per_s": rates[len(rates) // 2],
+            "env": env, "walls_s": walls, "env_steps_per_s": statistics.median(rates),
             "env_steps_per_s_min": rates[0], "env_steps_per_s_max": rates[-1],
             "updates": updates, "last_loss": metrics[loss][:, -1].mean().item(),
             "eval_return": evals.episode_return.mean((0, 2)).tolist(), "system": system,
@@ -965,7 +1006,7 @@ def matrix_train(ops):
         rates = sorted(steps_total / w for w in walls)
         rows[label] = {
             "system": name, "env": env, "walls_s": walls,
-            "env_steps_per_s": rates[len(rates) // 2], "env_steps_per_s_min": rates[0],
+            "env_steps_per_s": statistics.median(rates), "env_steps_per_s_min": rates[0],
             "env_steps_per_s_max": rates[-1], "updates": updates,
             "last_eval_return": evals.episode_return[:, -1].mean().item(),
             "last_loss": metrics["loss"][:, -1].mean().item(),
@@ -1141,6 +1182,289 @@ def matrix_phase(tag, ops, ref):
                            "windows x 8 lanes)",
         "by_shape_matrix": timing,
     }
+
+
+def _timed_cuda(fn):
+    """``fn()`` and its wall, from a synchronised start to its last op."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _finite(tree):
+    from repro_torch.tree import tree_leaves
+
+    return all(bool(torch.isfinite(x).all()) for x in tree_leaves(tree))
+
+
+def _rates(steps, walls):
+    rates = sorted(steps / w for w in walls)
+    return {"walls_s": walls, "env_steps_per_s": statistics.median(rates),
+            "env_steps_per_s_min": rates[0], "env_steps_per_s_max": rates[-1]}
+
+
+def async_rates():
+    """The async runner at 1 / 2 / 4 actors on ippo/spread, beside anakin (before and after)."""
+    from repro_torch.core import make_anakin
+    from repro_torch.distributed.impala import default_unroll_len, train_async
+    from repro_torch.systems.registry import make_pair
+
+    _, system = make_pair("ippo", "spread")
+    steps = ASYNC_ITERATIONS * ASYNC_ENVS
+    anakin = lambda: make_anakin(system, ASYNC_ITERATIONS, ASYNC_ENVS, device="cuda")(0)
+    rows = {}
+    _, wall = _timed_cuda(anakin)
+    rows["anakin"] = _rates(steps, [wall])
+    for actors in ASYNC_ACTORS:
+        walls = []
+        for _ in range(ASYNC_REPEATS if actors == 4 else 1):
+            (st, m), wall = _timed_cuda(lambda: train_async(
+                system, 0, ASYNC_ITERATIONS, ASYNC_ENVS, actors, device="cuda"))
+            walls.append(wall)
+        ticks = ASYNC_ITERATIONS // default_unroll_len(system)
+        _require(st.updates == ticks * actors and int(st.train.steps) == st.updates,
+                 f"async {actors} actors: {st.updates} updates")
+        _require(st.dropped == 0 and _finite(st.train.params), f"async {actors} actors")
+        rows[f"async {actors}"] = {
+            **_rates(steps * actors, walls), "updates": st.updates,
+            "queue_depth_mean": float(m["queue_depth"].mean()),
+            "staleness_mean": float(m["staleness"].mean()),
+            "dropped_chunks": float(m["dropped"][-1]),
+        }
+    _, wall = _timed_cuda(anakin)
+    rows["anakin (after)"] = _rates(steps, [wall])
+    return rows
+
+
+def async_rec_launches(ops):
+    """rec-IPPO (linear core, matrix_game) under the async runner: its scan launches an update.
+
+    2 actors x 256 envs x 256 iterations at PPOConfig's defaults; without
+    V-trace, and with it at ``param_sync_every=2`` (the actor re-run over
+    the stored window adds an unroll an agent an update).  The counter is
+    set to 0 just before each run and read just after it.
+    """
+    from repro_torch.distributed.impala import train_async
+    from repro_torch.systems import PPOConfig
+    from repro_torch.systems.registry import make_pair
+
+    rows = {}
+    for label, overrides, sync in (("rec_ippo linear", {"recurrent_core": "linear"}, 1),
+                                   ("rec_ippo linear vtrace",
+                                    {"recurrent_core": "linear", **VTRACE_CLIPS}, 2)):
+        _, system = make_pair("rec_ippo", "matrix_game", **overrides)
+        cfg, n = PPOConfig(**overrides), len(system.spec.agent_ids)
+        ops.linear_recurrent_scan.launches = 0
+        (st, m), wall = _timed_cuda(lambda: train_async(
+            system, 0, ASYNC_ITERATIONS, ASYNC_ENVS, 2, param_sync_every=sync, device="cuda"))
+        launches = ops.linear_recurrent_scan.launches
+        # a bootstrap critic unroll an agent, (with V-trace an actor re-run an agent), then
+        # an actor and a critic unroll an agent a minibatch, forward and backward
+        per_update = n + (n if cfg.use_vtrace else 0) + cfg.epochs * cfg.num_minibatches * n * 4
+        _require(launches == st.updates * per_update and st.updates > 0,
+                 f"async {label}: recurrent_scan launched {launches}x for {st.updates} updates, "
+                 f"expected {per_update} an update")
+        _require(_finite(st.train.params) and st.dropped == 0, f"async {label}")
+        rows[label] = {**_rates(ASYNC_ITERATIONS * ASYNC_ENVS * 2, [wall]), "launches": launches,
+                       "launches_per_update": per_update, "updates": st.updates,
+                       "staleness_mean": float(m["staleness"].mean())}
+    return rows
+
+
+def async_replay_and_vtrace():
+    """vdn/spread under the async runner (2 actors, unroll 8), and V-trace ippo at sync 4."""
+    from repro_torch.distributed.impala import train_async
+    from repro_torch.systems.registry import make_pair
+
+    rows = {}
+    _, system = make_pair("vdn", "spread")
+    (st, m), wall = _timed_cuda(lambda: train_async(system, 0, ASYNC_ITERATIONS, ASYNC_ENVS, 2,
+                                                    device="cuda"))
+    _require(st.updates > 0 and st.dropped == 0 and _finite(st.train.params), "async vdn")
+    rows["vdn"] = {**_rates(ASYNC_ITERATIONS * ASYNC_ENVS * 2, [wall]), "updates": st.updates,
+                   "queue_depth_mean": float(m["queue_depth"].mean()),
+                   "staleness_mean": float(m["staleness"].mean()),
+                   "dropped_chunks": float(m["dropped"][-1])}
+    # a 32-step rollout a chunk: 8 ticks, so the snapshot ages 0, 1, 2, 3 twice
+    _, system = make_pair("ippo", "spread", rollout_len=32, **VTRACE_CLIPS)
+    (st, m), wall = _timed_cuda(lambda: train_async(system, 0, ASYNC_ITERATIONS, ASYNC_ENVS, 1,
+                                                    param_sync_every=4, device="cuda"))
+    trace = m["staleness"].tolist()
+    _require(trace == [0.0, 1.0, 2.0, 3.0] * 2, f"V-trace ippo staleness trace {trace}")
+    _require(_finite(st.train.params) and st.updates == 8, "V-trace ippo under staleness")
+    rows["ippo vtrace"] = {**_rates(ASYNC_ITERATIONS * ASYNC_ENVS, [wall]), "trace": trace,
+                           "updates": st.updates}
+    return rows
+
+
+def staleness_zero_pins():
+    """At 1 actor, a sync every tick and anakin's cadence the async run is anakin's, on the card."""
+    from repro_torch.core import make_anakin
+    from repro_torch.distributed.impala import make_async
+    from repro_torch.envs import make_env
+    from repro_torch.systems import registry
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for name, overrides, iterations, unroll in (
+            ("ippo", PIN_PPO, 32, None),
+            ("rec_ippo", dict(PIN_PPO, recurrent_core="linear"), 16, None),
+            ("vdn", PIN_VDN, 64, 1)):
+        system = registry.make_system(name, make_env("matrix_game"), **overrides)
+        st_a, _ = make_anakin(system, iterations, 4, device="cuda")(1)
+        st_b, _ = make_async(system, iterations, 4, 1, unroll_len=unroll, device="cuda")(1)
+        _require(int(st_a.train.steps) == int(st_b.train.steps) > 0, f"pin {name}: steps")
+        err = max(_err(x.cpu(), y.cpu()) for x, y in zip(
+            tree_leaves((st_a.train.params, st_a.train.opt_state)),
+            tree_leaves((st_b.train.params, st_b.train.opt_state)), strict=True))
+        _require(err <= PIN_TOL, f"pin {name}: async differs from anakin by {err}")
+        out[name] = err
+    return out
+
+
+def _sharded_rank(rank, world_size, device):
+    """The one rank of the NCCL world: each sharded run twice, its training loops' walls."""
+    from repro_torch.core.system import run_executor
+    from repro_torch.launch.train_marl import _build_system
+
+    del world_size
+    out = {}
+    for name, env in SHARDED_RUNS:
+        runs = [run_executor(_build_system(name, env, None), 0, rank, ASYNC_ITERATIONS,
+                             ASYNC_ENVS, device=device) for _ in range(2)]
+        out[name] = {"walls_s": [float(r["metrics"]["wall_s"][0]) for r in runs],
+                     "reward": float(runs[-1]["metrics"]["reward"][0]),
+                     "finite": _finite(runs[-1]["params"])}
+    return out
+
+
+def sharded_world_one():
+    """The sharded runner at one rank on NCCL (ippo/spread, madqn/matrix_game), beside anakin.
+
+    One spawned world runs each system twice through `run_executor` (the
+    rank's program of `train_distributed`): the first run of a fresh
+    process pays its first-use costs (cuBLAS handles, CUDA module loading,
+    the allocator's growth), which this process's anakin has paid already,
+    so the second run's loop is the rate; the call's wall also holds the
+    rank's start and NCCL's set-up.
+    """
+    from repro_torch.core import make_anakin
+    from repro_torch.distributed import collective
+    from repro_torch.systems.registry import make_pair
+
+    (res,), wall = _timed_cuda(lambda: collective.run_world(_sharded_rank, 1, "nccl", "cuda",
+                                                            timeout_s=300))
+    steps = ASYNC_ITERATIONS * ASYNC_ENVS
+    rows = {}
+    for name, env in SHARDED_RUNS:
+        r = res[name]
+        _require(r["finite"], f"sharded {name}: non-finite params")
+        _, system = make_pair(name, env)
+        _, anakin_wall = _timed_cuda(
+            lambda: make_anakin(system, ASYNC_ITERATIONS, ASYNC_ENVS, device="cuda")(0))
+        rows[name] = {"env": env, "walls_s": r["walls_s"],
+                      "env_steps_per_s": steps / r["walls_s"][-1],
+                      "cold_env_steps_per_s": steps / r["walls_s"][0], "call_wall_s": wall,
+                      "anakin_env_steps_per_s": steps / anakin_wall, "reward": r["reward"]}
+    return rows
+
+
+def _moments_rank(rank, world_size, device):
+    """One rank of the 2-rank gloo world on one card: its final train state."""
+    from repro_torch.core.system import run_executor
+    from repro_torch.launch.train_marl import _build_system
+
+    del world_size
+    out = run_executor(_build_system("ippo", "spread", None), 0, rank, 256, 64, device=device)
+    return {"train": out["state"].train, "params": out["params"]}
+
+
+def gloo_world_on_one_card():
+    """Two ranks on ``cuda:0`` over gloo: equal Adam moments, each rank's own params."""
+    from repro_torch.distributed import collective
+    from repro_torch.tree import tree_leaves
+
+    (r0, r1), wall = _timed_cuda(lambda: collective.run_world(
+        _moments_rank, 2, "gloo", ["cuda:0", "cuda:0"], timeout_s=300))
+    equal = all(torch.equal(x, y) for x, y in zip(tree_leaves(r0["train"].opt_state),
+                                                 tree_leaves(r1["train"].opt_state), strict=True))
+    _require(equal, "gloo on one card: the ranks' Adam moments differ")
+    gap = max(_err(x.cpu(), y.cpu()) for x, y in zip(tree_leaves(r0["train"].params),
+                                                     tree_leaves(r1["train"].params)))
+    _require(gap > 0, "gloo on one card: the ranks' params should differ (own inits)")
+    _require(all(torch.equal(x, y) for x, y in zip(tree_leaves(r1["params"]),
+                                                   tree_leaves(r0["train"].params))),
+             "gloo on one card: rank 1 did not return rank 0's params")
+    return {"params_gap": gap, "updates": int(r0["train"].steps), "wall_s": wall}
+
+
+def distributed_phase(tag, ops):
+    """Slice 9: the async actor/learner runner and the sharded runner on the card."""
+    from repro_torch.launch import train_marl
+
+    t0 = time.perf_counter()
+    rates = async_rates()
+    base = rates["anakin"]["env_steps_per_s"]
+    for label, r in rates.items():
+        extra = ("" if label.startswith("anakin") else
+                 f"; {r['updates']} updates, queue depth {r['queue_depth_mean']:.2f}, "
+                 f"staleness {r['staleness_mean']:.3f}, dropped {r['dropped_chunks']:.0f}; "
+                 f"{r['env_steps_per_s'] / base:.3f}x anakin")
+        print(f"train (distributed): ippo on spread, {label}, {ASYNC_ENVS} envs x "
+              f"{ASYNC_ITERATIONS} iterations{'' if label.startswith('anakin') else ' an actor'}"
+              f": {r['env_steps_per_s']:.0f} env steps/s (min {r['env_steps_per_s_min']:.0f}, "
+              f"max {r['env_steps_per_s_max']:.0f}), walls {[round(w, 3) for w in r['walls_s']]}"
+              f" s{extra} {tag}")
+    rec = async_rec_launches(ops)
+    for label, r in rec.items():
+        print(f"train (distributed): async {label} on matrix_game, 2 actors x {ASYNC_ENVS} envs "
+              f"x {ASYNC_ITERATIONS} iterations: {r['env_steps_per_s']:.0f} env steps/s; "
+              f"{r['updates']} updates, staleness {r['staleness_mean']:.3f}; recurrent_scan "
+              f"launches {r['launches']} ({r['launches_per_update']} an update) {tag}")
+    more = async_replay_and_vtrace()
+    r = more["vdn"]
+    print(f"train (distributed): async vdn on spread, 2 actors x {ASYNC_ENVS} envs x "
+          f"{ASYNC_ITERATIONS} iterations, unroll 8: {r['env_steps_per_s']:.0f} env steps/s; "
+          f"{r['updates']} updates, queue depth {r['queue_depth_mean']:.2f}, staleness "
+          f"{r['staleness_mean']:.3f}, dropped {r['dropped_chunks']:.0f} {tag}")
+    r = more["ippo vtrace"]
+    print(f"train (distributed): async V-trace ippo on spread (rollout 32), 1 actor, "
+          f"param_sync_every 4: staleness {r['trace']}, {r['updates']} updates, "
+          f"{r['env_steps_per_s']:.0f} env steps/s {tag}")
+    pins = staleness_zero_pins()
+    print(f"pin (distributed): async at staleness 0 vs anakin on the card, max abs diff of "
+          f"params and Adam state: {', '.join(f'{k} {v:.3e}' for k, v in pins.items())} "
+          f"(tol {PIN_TOL})")
+    e = marl_update_parity("ippo", VTRACE_CLIPS, stale=True)
+    print(f"slice parity (distributed): V-trace ippo on spread, stale behaviour log-probs, one "
+          f"update of 2 seed lanes x {MARL_ENVS} envs on the card vs the CPU: first minibatch "
+          f"loss {e['loss']:.3e}, grads {e['grads']:.3e}, params after its step "
+          f"{e['params']:.3e} (tol {SLICE_TOL}); after all {e['steps']} steps params "
+          f"{e['update_params']:.3e} (a reading)")
+    sharded = sharded_world_one()
+    for name, r in sharded.items():
+        print(f"train (distributed): sharded {name} on {r['env']}, 1 rank on NCCL, "
+              f"{ASYNC_ENVS} envs x {ASYNC_ITERATIONS} iterations: {r['env_steps_per_s']:.0f} env "
+              f"steps/s in the rank's second loop ({r['cold_env_steps_per_s']:.0f} in its first;"
+              f" walls {[round(w, 3) for w in r['walls_s']]} s; the world's call "
+              f"{r['call_wall_s']:.2f} s), anakin {r['anakin_env_steps_per_s']:.0f} "
+              f"({r['env_steps_per_s'] / r['anakin_env_steps_per_s']:.3f}x) {tag}")
+    gloo = gloo_world_on_one_card()
+    print(f"train (distributed): 2 gloo ranks on cuda:0, ippo on spread, 64 envs x 256 "
+          f"iterations a rank: Adam moments equal bitwise after {gloo['updates']} updates, "
+          f"params {gloo['params_gap']:.3e} apart (own inits) in {gloo['wall_s']:.2f} s")
+    launched = train_marl.main(["--system", "ippo", "--env", "spread", "--runner", "async",
+                                "--num-actors", "2", "--param-sync-every", "2", "--num-envs",
+                                str(ASYNC_ENVS), "--iterations", str(ASYNC_ITERATIONS)])
+    _require(launched["dropped_chunks"] == 0.0, "launcher async: dropped chunks")
+    print(f"launcher (distributed): ippo on spread, --runner async, 2 actors, sync every 2: "
+          f"{launched['steps_per_sec']:.0f} env steps/s ({launched['per_actor_steps_per_sec']:.0f}"
+          f" an actor), staleness {launched['staleness_mean']:.3f} {tag}")
+    print(f"slice 9 (distributed) in {time.perf_counter() - t0:.1f} s")
+    return {"launches_async_rec_ippo": rec["rec_ippo linear"]["launches"],
+            "launches_async_rec_ippo_vtrace": rec["rec_ippo linear vtrace"]["launches"]}
 
 
 def _scan_inputs(b, S, di, N, dtype, seed):
@@ -1648,6 +1972,9 @@ def main():
     # ---- slice 8: the rest of the support matrix (rec-MADQN, DIAL, RIAL, four envs)
     matrix = matrix_phase(tag, ops, ref)
 
+    # ---- slice 9: the distributed runners (async actor/learner, sharded)
+    distributed = distributed_phase(tag, ops)
+
     # ---- slice 2: Falcon-Mamba-7B greedy serving
     scan_worst = scan_parity(sops, sref)
     for case, e in scan_worst.items():
@@ -1764,6 +2091,7 @@ def main():
         "launches": run["launches"],
         "launches_rec_mappo": rec_mappo_launches,
         **{k: v for k, v in matrix.items() if k.startswith("launches")},
+        **distributed,
         "max_abs_err": max(*worst.values(), matrix["max_abs_err_matrix"]),
         "ms": main_row["ms"],
         "device_ms": main_row["device_ms"],

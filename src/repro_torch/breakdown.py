@@ -1,7 +1,8 @@
 """Where the time of a MARL training path goes on a CUDA GPU.
 
     PYTHONPATH=src python -m repro_torch.breakdown [--num-envs 256] \\
-        [--system rec_ippo] [--env matrix_game] [--num-seeds 0] [--device cuda]
+        [--system rec_ippo] [--env matrix_game] [--num-seeds 0] [--device cuda] \\
+        [--runner anakin|async] [--num-actors 1] [--param-sync-every 1]
 
 Builds ``--system`` on ``--env`` from the registries at its config's
 defaults (rec-IPPO with the linear core on matrix_game unless told
@@ -31,6 +32,16 @@ card, where a prediction of the card's numbers starts: ``--device cpu``
 runs all of it on the CPU, where only these counts and the host times
 mean anything (on the card the profiler's kernels per phase are
 1.04-1.12 times the count).  Prints one JSON object.
+
+``--runner async`` breaks down the async actor/learner runner
+(`repro_torch.distributed.impala`) instead, with ``--num-actors`` and
+``--param-sync-every``: a tick (the system's unroll of every actor, then
+the learner's consumption) splits into the actors (sync and unrolls), the
+queue (pushes and pops) and the learner (observe and the gated updates).
+One tick warms up, `ASYNC_TICKS` are timed phase by phase with the host
+clock around synchronised work, one more runs each phase under the
+profiler (device busy time, idle share, launches), and one more under the
+dispatch counter.
 """
 from __future__ import annotations
 
@@ -56,6 +67,7 @@ from repro_torch.core.system import (
     init_system_state,
     seed_generators,
 )
+from repro_torch.distributed.impala import default_unroll_len, make_async
 from repro_torch.envs import REGISTRY as ENVS
 from repro_torch.kernels.recurrent_scan import linear_recurrent_scan
 from repro_torch.systems.registry import REGISTRY as SYSTEMS
@@ -63,6 +75,7 @@ from repro_torch.systems.registry import make_pair
 
 SCAN_KERNEL = "linear_scan_kernel"
 REPLAY_ITERATIONS = 64  # a replay system's iterations warmed up, then timed, then profiled
+ASYNC_TICKS = 4  # the async runner's ticks timed after one of warm-up
 
 def _rollout(system, tenv, st, steps):
     with torch.no_grad():
@@ -238,6 +251,60 @@ def _replay_breakdown(system, tenv, st, count, env_steps):
     }
 
 
+def _async_phases(program):
+    """A tick of ``program`` as its three phases: actors, queue, learner."""
+
+    def actors(st):
+        return program.act(program.sync(st))
+
+    def queue(st, chunks):
+        return program.pop(program.push(st, chunks))
+
+    def learner(st, items):
+        st, staleness = program.learn(st, items)
+        return st._replace(tick=st.tick + 1), staleness
+
+    return actors, queue, learner
+
+
+def _async_tick(phases, st, run):
+    """One tick, each phase through ``run(fn, *args) -> (out, reading)``: ``(state, readings)``."""
+    actors, queue, learner = phases
+    (st, chunks, _), r_act = run(actors, st)
+    (st, items), r_queue = run(queue, st, chunks)
+    (st, _), r_learn = run(learner, st, items)
+    return st, {"actors": r_act, "queue": r_queue, "learner": r_learn}
+
+
+def _async_breakdown(program, st, ticks, env_steps):
+    """The async runner: a warm-up tick, ``ticks`` timed by phase, one profiled, one counted."""
+    phases = _async_phases(program)
+    (st, _), warm_s = _timed(program.tick, st)
+    timed = {"actors": 0.0, "queue": 0.0, "learner": 0.0}
+    for _ in range(ticks):
+        st, t = _async_tick(phases, st, _timed)
+        for k in timed:
+            timed[k] += t[k]
+    tick_s = sum(timed.values()) / ticks
+    st, profiled = _async_tick(phases, st, _profiled)
+    st, ops = _async_tick(phases, st, _dispatched_ops)
+    return {
+        "unroll_len": program.unroll_len,
+        "ticks": ticks,
+        "warmup": {"tick_s": warm_s},
+        "steady": {
+            **{f"{k}_s_per_tick": v / ticks for k, v in timed.items()},
+            "tick_s": tick_s,
+            "env_steps_per_s": env_steps * program.unroll_len / tick_s,
+            "learner_updates": st.updates,
+            "dropped": st.dropped,
+        },
+        "profiled": profiled,
+        "dispatched_ops": {f"{k}_tick": v for k, v in ops.items()},
+        "state": st,
+    }
+
+
 def main(argv=None):
     """Run the breakdown and print it as JSON."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -249,6 +316,10 @@ def main(argv=None):
     parser.add_argument("--set", action="append", default=[], metavar="FIELD=VALUE",
                         help="a config field of the system, e.g. recurrent_core=gru or "
                              "use_comm=False (repeatable)")
+    parser.add_argument("--runner", choices=("anakin", "async"), default="anakin")
+    parser.add_argument("--num-actors", type=int, default=1, help="async: actor replicas")
+    parser.add_argument("--param-sync-every", type=int, default=1,
+                        help="async: ticks between snapshot refreshes")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     overrides = {"recurrent_core": "linear"} if args.system.startswith("rec_") else {}
@@ -259,6 +330,21 @@ def main(argv=None):
         except (ValueError, SyntaxError):
             overrides[field] = value  # a bare word: a string such as gru
     _, system = make_pair(args.system, args.env, **overrides)
+    if args.runner == "async":
+        if args.num_seeds:
+            raise ValueError("--num-seeds is an anakin option")
+        unroll = default_unroll_len(system)
+        program = make_async(system, unroll, args.num_envs, args.num_actors,
+                             param_sync_every=args.param_sync_every, device=device)
+        st, init_s = _timed(program.init_state, 0)
+        out = _async_breakdown(program, st, ASYNC_TICKS,
+                               args.num_envs * args.num_actors)
+        out.pop("state")
+        phases = out["profiled"]
+        head = {"runner": "async", "num_actors": args.num_actors,
+                "param_sync_every": args.param_sync_every}
+        _print_result(args, device, init_s, head, out, phases)
+        return
     tenv = _training_env(system.env)
     lanes = args.num_seeds or None
     generator = (torch.Generator(device).manual_seed(0) if lanes is None
@@ -276,6 +362,11 @@ def main(argv=None):
     st, act_ops = _dispatched_ops(_rollout, system, tenv, st, 1)
     st, update_ops = _dispatched_ops(_update, system, st)
     out["dispatched_ops"] = {"act_iteration": act_ops, "update": update_ops}
+    _print_result(args, device, init_s, {"runner": "anakin"}, out, phases)
+
+
+def _print_result(args, device, init_s, head, out, phases):
+    """Print the breakdown as one JSON object, with the card's name and power limit."""
     gpu = "not measured (no CUDA device)"
     if device.type == "cuda":
         gpu = subprocess.run(
@@ -289,9 +380,10 @@ def main(argv=None):
         "env": args.env,
         "num_seeds": args.num_seeds,
         "num_envs": args.num_envs,
+        **head,
         "init_s": init_s,
         **out,
-        # the acting phase and the update phase together, as training runs them
+        # every phase together, as training runs them
         "device_idle_share": 1 - sum(p["device_busy_s"] for p in phases.values())
         / sum(p["wall_s"] for p in phases.values()) if device.type == "cuda" else None,
     }, indent=1))

@@ -25,6 +25,12 @@ axis.  `reset_from_jax` carries a batch of env resets; a PRNG key in an
 env state (switch_game's and robot_warehouse's, which draw inside
 ``step``) becomes the generator the caller passes.
 
+`queue_from_jax` / `queue_to_jax` carry the async runner's trajectory
+queue (`QueueState`, cursors Python ints in the port).  `ranks_from_jax`
+splits a tree whose leaves lead with a device (or vmapped rank) axis into
+one tree a rank: the sharded runner's per-rank train states.  V-trace's
+inputs are plain arrays and cross with `params_from_jax`.
+
 `lm_params_from_jax` / `lm_params_to_jax` carry a language model (dense or
 Mamba1): the JAX package stacks its layers along a leading L axis, the port
 keeps one module per layer.  `lm_opt_state_from_jax` / `lm_opt_state_to_jax`
@@ -39,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.buffer import BufferState, SeqBufferState
+from repro_torch.core.buffer import BufferState, QueueState, SeqBufferState
 from repro_torch.core.types import Carry, EvalMetrics, SystemState, TrainState, Transition
 from repro_torch.envs.api import TimeStep
 from repro_torch.envs.lbf import LbfState
@@ -183,6 +189,29 @@ def seq_buffer_to_jax(state: SeqBufferState):
     count = lambda n: _jax_count(n, state.lanes)
     return SeqBufferState(params_to_jax(state.storage), params_to_jax(state.acc),
                           count(state.t), count(state.insert_pos), count(state.size))
+
+
+def queue_from_jax(state, device="cpu") -> QueueState:
+    """A JAX trajectory queue (``QueueState``) -> the port's (``head`` and ``size`` Python ints)."""
+    return QueueState(params_from_jax(state.storage, device), int(state.head), int(state.size))
+
+
+def queue_to_jax(state: QueueState):
+    """The port's trajectory queue -> the reference's fields as numpy arrays (int32 cursors)."""
+    return QueueState(params_to_jax(state.storage), np.int32(state.head), np.int32(state.size))
+
+
+def ranks_from_jax(tree, device="cpu", convert=params_from_jax) -> list:
+    """A tree whose leaves lead with a rank axis -> one converted tree a rank.
+
+    ``convert`` carries one rank's tree (`replay_train_from_jax` for the
+    replay family's train states).
+    """
+    ranks = {np.shape(x)[0] for x in tree_leaves(_convert(tree, np.asarray, lambda cls: cls))}
+    if len(ranks) != 1:
+        raise ValueError(f"leaves lead with different rank axes: {sorted(ranks)}")
+    return [convert(_convert(tree, lambda x, r=r: np.asarray(x)[r], lambda cls: cls), device)
+            for r in range(ranks.pop())]
 
 
 def _unstack_layers(tree, num_layers):

@@ -3,9 +3,11 @@ from repro_torch.core.system import (
     System,
     init_system_state,
     make_anakin,
+    make_distributed,
     run_environment_loop,
     seed_generators,
     train_anakin,
+    train_distributed,
 )
 from repro_torch.core.types import Carry, EvalMetrics, SystemState, TrainState, Transition
 
@@ -18,7 +20,9 @@ __all__ = [
     "Transition",
     "init_system_state",
     "make_anakin",
+    "make_distributed",
     "run_environment_loop",
     "seed_generators",
     "train_anakin",
+    "train_distributed",
 ]

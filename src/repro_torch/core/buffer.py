@@ -16,6 +16,10 @@ The reference's three experience regimes:
   (``Transition.extras["carry_in"]``), so a window opens from the stored
   memory.
 
+Beside the three datasets, `QueueState` is a transport: the bounded FIFO
+of trajectory chunks between the async runner's actors and its learner
+(``queue_*``; a full queue drops the incoming item).
+
 Unlike the reference, storage is written in place (nothing else holds a
 reference to it), and the cursors (``insert_pos`` and ``size``, the
 rollout's ``t``, the sequence table's step count) are Python ints: they
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import lanes as lanes_
@@ -274,3 +279,81 @@ def seq_expected_size(t: int, capacity: int, window_len: int, num_envs: int, str
     """
     flushes = max(0, (t - window_len) // stride + 1)
     return min(num_envs * flushes, capacity)
+
+
+# ------------------------------------------------------- trajectory queue
+
+
+class QueueState(NamedTuple):
+    """A fixed-capacity FIFO ring of item slots: the async runner's transport.
+
+    ``storage`` leaves are preallocated ``(capacity, ...)`` tensors, one
+    slot an item, written by slot copies; a leaf of the example item that
+    is not a tensor (a snapshot's update count) gets a numpy object array
+    of ``capacity`` entries.  ``head`` (the oldest item's slot) and
+    ``size`` are Python ints: what the queue holds is known on the host,
+    so no push or pop waits on the device.
+    """
+
+    storage: Any
+    head: int
+    size: int
+
+
+def queue_init(example_item, capacity: int, device=None) -> QueueState:
+    """A fresh empty queue; ``example_item`` fixes the slots' shapes and dtypes."""
+
+    def slots(x):
+        if isinstance(x, torch.Tensor):
+            return torch.zeros((capacity, *x.shape), dtype=x.dtype, device=device or x.device)
+        out = np.empty(capacity, dtype=object)
+        out[:] = [x] * capacity
+        return out
+
+    return QueueState(storage=tree_map(slots, example_item), head=0, size=0)
+
+
+def queue_capacity(state: QueueState) -> int:
+    """The number of slots the queue was built with."""
+    return len(tree_leaves(state.storage)[0])
+
+
+def queue_size(state: QueueState) -> int:
+    """How many items are queued."""
+    return state.size
+
+
+def _write_slot(s, x, slot):
+    if isinstance(s, torch.Tensor):
+        s[slot].copy_(x)
+    else:
+        s[slot] = x
+
+
+def queue_push(state: QueueState, item):
+    """Enqueue ``item`` at the tail; a full queue drops the *incoming* item.
+
+    Returns ``(state, accepted)``: ``accepted`` is False when the item was
+    dropped, and the queued items are then left as they were.  Tensors
+    are cast to the slot's dtype, as the reference casts them.
+    """
+    capacity = queue_capacity(state)
+    if state.size >= capacity:
+        return state, False
+    slot = (state.head + state.size) % capacity
+    tree_map(lambda s, x: _write_slot(s, x, slot), state.storage, item)
+    return state._replace(size=state.size + 1), True
+
+
+def queue_pop(state: QueueState):
+    """Dequeue the oldest item (FIFO): ``(state, item)``.
+
+    The item's tensors are views of its slot, valid until a push writes
+    the slot again.  Popping an empty queue returns the head slot's stale
+    contents and leaves the queue empty, as the reference does.
+    """
+    item = tree_map(lambda s: s[state.head], state.storage)
+    if state.size == 0:
+        return state, item
+    return state._replace(head=(state.head + 1) % queue_capacity(state),
+                          size=state.size - 1), item

@@ -2,7 +2,8 @@
 
 A System bundles the executor (``select_actions`` + carry), the trainer
 (``update``) and the dataset (buffer) as plain functions on tensors, as in
-the reference.  Two runners drive it:
+the reference.  Three runners here drive it (the fourth, the async
+actor/learner runner, is `repro_torch.distributed.impala`):
 
   run_environment_loop — the paper's Block-1 executor-environment loop:
       one env, python-paced, the faithful baseline;
@@ -13,11 +14,20 @@ the reference.  Two runners drive it:
       tensor ops, and the ``lax.cond`` update gate is a Python ``if`` on a
       Python int.  With ``num_seeds`` the runs of several seeds share every
       op as seed lanes (`repro_torch.lanes`), and with ``eval_every`` the
-      greedy evaluator runs between blocks of iterations.
+      greedy evaluator runs between blocks of iterations;
+  train_distributed — the paper's ``num_executors``: one process a rank on
+      ``torch.distributed``, each running anakin on its own envs and
+      dataset, with a system built with ``distributed_axis="data"``
+      averaging its gradients across the ranks in every update.  Where
+      the reference's ``shard_map`` splits one key, each rank here starts
+      from its own seed, so the ranks' initial params differ (as the
+      reference's do: its per-device init splits the train key per
+      device); the averaged gradients then move them in step.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable
 
 import torch
@@ -209,6 +219,16 @@ def _step_phase(system: System, tenv, st: SystemState):
     return SystemState(st.train, buffer, env_state, ts, carry, st.key), metrics
 
 
+def _do_updates(system: System, train, buffer, generator):
+    """``updates_per_step`` trainer updates (the gated branch body).
+
+    Returns ``(train, buffer, the last update's metrics)``.
+    """
+    for _ in range(system.updates_per_step):
+        train, buffer, upd = system.update(train, buffer, generator)
+    return train, buffer, upd
+
+
 def _one_iteration(system: System, tenv, st: SystemState):
     """One vectorised step of every env, then ``updates_per_step`` updates if the dataset is ready.
 
@@ -221,9 +241,7 @@ def _one_iteration(system: System, tenv, st: SystemState):
         st, metrics = _step_phase(system, tenv, st)
     if not system.can_sample(st.buffer):
         return st, metrics, None
-    train, buffer = st.train, st.buffer
-    for _ in range(system.updates_per_step):
-        train, buffer, upd = system.update(train, buffer, st.key)
+    train, buffer, upd = _do_updates(system, st.train, st.buffer, st.key)
     return st._replace(train=train, buffer=buffer), metrics, upd
 
 
@@ -378,4 +396,116 @@ def train_anakin(
         system, num_iterations, num_envs, eval_every=eval_every,
         eval_episodes=eval_episodes, eval_num_envs=eval_num_envs,
         num_seeds=num_seeds, device=device,
+    )(seed)
+
+
+# -------------------------------------------------------- distributed runner
+
+
+def run_executor(system: System, seed: int, rank: int, num_iterations: int, num_envs: int,
+                 eval_episodes: int = 0, eval_num_envs=None, device=None) -> dict:
+    """One rank of the sharded runner, inside a world that has ``"data"`` bound.
+
+    Rank ``rank`` runs anakin from seed ``seed + rank`` (the seed lane
+    ``rank`` of a ``num_seeds`` run gets) on its own ``num_envs`` envs and
+    dataset; ``system`` must be built with ``distributed_axis="data"``, so
+    its updates average their gradients over the ranks.  Returns a dict:
+    ``state`` (this rank's final `SystemState`), ``params`` (rank 0's final
+    params, broadcast to every rank), ``metrics`` (each metric's mean on
+    every rank, and ``wall_s``, each rank's wall time of its training loop
+    to the last op, stacked to ``(world,)``) and, with ``eval_episodes > 0``,
+    ``eval_return`` (each rank's mean greedy return of ``eval_episodes``
+    episodes under its own final params, ``(world,)``; the seed is one
+    draw from the rank's generator, as anakin's interleaved evals take).
+    """
+    from repro_torch.distributed import collective
+
+    device = resolve_device(device)
+    program = make_anakin(system, num_iterations, num_envs, device=device)
+    sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
+    sync()
+    t0 = time.perf_counter()
+    st, metrics = program(seed + rank)
+    sync()
+    wall = time.perf_counter() - t0
+    names = sorted(metrics)
+    means = torch.stack([metrics[k].float().mean() for k in names] + [
+        torch.tensor(wall, device=device)])
+    names.append("wall_s")
+    gathered = collective.all_gather(means)  # (world, metrics)
+    out = {
+        "state": st,
+        "params": collective.broadcast(st.train.params),
+        "metrics": {k: gathered[:, i] for i, k in enumerate(names)},
+    }
+    if eval_episodes > 0:
+        from repro_torch.eval.evaluator import evaluate
+
+        ev = evaluate(system, st.train, _eval_seed(st.key), num_episodes=eval_episodes,
+                      num_envs=eval_num_envs or num_envs, device=device)
+        out["eval_return"] = collective.all_gather(ev.episode_return.float().mean())
+    return out
+
+
+def _executor(rank, world_size, device, system_fn, seed, num_iterations, num_envs,
+              eval_episodes, eval_num_envs):
+    """A spawned rank of `make_distributed`'s world: what the program returns."""
+    del world_size
+    out = run_executor(system_fn(), seed, rank, num_iterations, num_envs, eval_episodes,
+                       eval_num_envs, device)
+    result = (out["params"], out["metrics"])
+    return result + ((out["eval_return"],) if eval_episodes > 0 else ())
+
+
+def make_distributed(system_fn: Callable[[], System], num_iterations: int,
+                     num_envs_per_device: int, num_executors: int, *, backend: str, device,
+                     eval_episodes: int = 0, eval_num_envs=None, timeout_s: float = 900.0):
+    """Build the sharded program, a function of ``seed``, on ``torch.distributed``.
+
+    ``system_fn`` builds the `System` with ``distributed_axis="data"``; it
+    must pickle (a module-level function or a `functools.partial` of one),
+    since every rank is a spawned process that builds its own.  The caller
+    chooses ``backend`` and ``device``: ``"gloo"`` on ``"cpu"``, ``"nccl"``
+    with ``device="cuda"`` (rank ``r`` on ``cuda:r``; more executors than
+    cards raises), or an explicit list of devices, one a rank (gloo with
+    CUDA tensors where ranks share a card).  Nothing is switched for the
+    caller.
+
+    ``program(seed)`` runs `run_executor` on every rank and returns rank
+    0's ``(params, metrics)``, or ``(params, metrics, eval_return)`` with
+    ``eval_episodes > 0``: the params are rank 0's final ones (every rank
+    returns the same), each metric and the eval return are ``(world,)``,
+    one per rank.
+    """
+    from repro_torch.distributed import collective
+
+    collective.rank_devices(device, num_executors)  # raise before anything is spawned
+
+    def program(seed):
+        results = collective.run_world(
+            _executor, num_executors, backend, device,
+            args=(system_fn, seed, num_iterations, num_envs_per_device, eval_episodes,
+                  eval_num_envs),
+            timeout_s=timeout_s,
+        )
+        return results[0]
+
+    return program
+
+
+def train_distributed(system_fn: Callable[[], System], seed: int, num_iterations: int,
+                      num_envs_per_device: int, num_executors: int, *, backend: str, device,
+                      eval_episodes: int = 0, eval_num_envs=None, timeout_s: float = 900.0):
+    """Train ``num_executors`` ranks in step: the paper's ``num_executors`` scaling.
+
+    One `make_distributed` run; see there for the arguments and the
+    return.  Rank ``r`` starts from seed ``seed + r``, so the ranks'
+    initial params differ (as the reference's per-device init makes
+    them); every update then applies the same averaged gradients on every
+    rank, and the optimizer states stay equal.
+    """
+    return make_distributed(
+        system_fn, num_iterations, num_envs_per_device, num_executors, backend=backend,
+        device=device, eval_episodes=eval_episodes, eval_num_envs=eval_num_envs,
+        timeout_s=timeout_s,
     )(seed)

@@ -34,7 +34,8 @@ the eps-greedy action and bit draws through `_explore_draws` (the replay
 family's), the DRU noise through `_dru_noise`.  The update count
 ``TrainState.steps`` is a Python int (eps and the target sync are decided
 on the host), and every function runs seed lanes (`repro_torch.lanes`).
-The reference's ``distributed_axis`` is not ported yet.
+With ``distributed_axis`` each update's gradients are averaged over the
+ranks bound to that axis.
 """
 from __future__ import annotations
 
@@ -58,7 +59,13 @@ from repro_torch.envs.api import StepType
 from repro_torch.nn import MLP
 from repro_torch.nn.recurrent import make_core, reset_carry, window_start_carry
 from repro_torch.systems.offpolicy import _explore_draws, linear_eps
-from repro_torch.systems.onpolicy import _apply, _example_transition, _take, _value_and_grad
+from repro_torch.systems.onpolicy import (
+    _apply,
+    _example_transition,
+    _sync,
+    _take,
+    _value_and_grad,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +75,7 @@ class DialConfig:
     ``use_comm=False`` is the no-channel ablation (recurrent independent
     Q-learners); ``recurrent_core`` picks ``"gru"`` or ``"linear"``;
     ``protocol`` is ``"dial"`` or ``"rial"``; ``rollout_len`` None means
-    the env's horizon.  The reference's ``distributed_axis`` is not ported.
+    the env's horizon.
     """
 
     hidden_dim: int = 64
@@ -85,6 +92,7 @@ class DialConfig:
     recurrent_core: str = "gru"
     protocol: str = "dial"
     rollout_len: Optional[int] = None
+    distributed_axis: Optional[str] = None  # pmean grads over this axis's ranks
 
 
 class DialNets(NamedTuple):
@@ -277,6 +285,7 @@ def make_dial(env, cfg: DialConfig = DialConfig()) -> System:
         traj = rollout_take(buffer)
         loss, grads = _value_and_grad(loss_fn, train.params, train.target_params, traj,
                                       generator)
+        grads = _sync(cfg, grads)
         with torch.no_grad():
             params, opt_state = _apply(opt, grads, train.opt_state, train.params,
                                        lanes.count(generator))

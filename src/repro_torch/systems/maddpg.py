@@ -15,7 +15,7 @@ noise draw and one sample draw a lane, losses reduced within a lane.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -27,7 +27,7 @@ from repro_torch.core.types import TrainState, Transition
 from repro_torch.envs.api import EnvSpec
 from repro_torch.nn import MLP
 from repro_torch.systems.offpolicy import init_replay_buffer
-from repro_torch.systems.onpolicy import _apply, _value_and_grad
+from repro_torch.systems.onpolicy import _apply, _sync, _value_and_grad
 from repro_torch.tree import tree_map
 
 
@@ -35,7 +35,8 @@ from repro_torch.tree import tree_map
 class MaddpgConfig:
     """MADDPG/MAD4PG hyperparameters (same fields and defaults as the reference).
 
-    The reference's ``distributed_axis`` is not ported yet.
+    ``distributed_axis`` averages the critic's and the actor's gradients
+    over the ranks bound to that axis, both in one buffer.
     """
 
     hidden_sizes: Sequence[int] = (64, 64)
@@ -48,6 +49,7 @@ class MaddpgConfig:
     min_replay: int = 2_000
     sigma: float = 0.15  # exploration noise
     max_grad_norm: float = 10.0
+    distributed_axis: Optional[str] = None
     # distributional (MAD4PG) head
     distributional: bool = False
     num_atoms: int = 51
@@ -221,6 +223,7 @@ def make_maddpg(env, cfg: MaddpgConfig = MaddpgConfig(), architecture=None) -> S
             critic_loss_fn, train.params["critic"], train.params, train.target_params, batch
         )
         aloss, agrads = _value_and_grad(actor_loss_fn, train.params["actor"], train.params, batch)
+        cgrads, agrads = _sync(cfg, (cgrads, agrads))
         with torch.no_grad():
             critic, c_opt = _apply(critic_opt, cgrads, train.opt_state["critic"],
                                    train.params["critic"], S)

@@ -20,7 +20,7 @@ losses reduce within a lane.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -32,15 +32,21 @@ from repro_torch.core.system import System
 from repro_torch.core.types import TrainState, Transition
 from repro_torch.envs.api import EnvSpec
 from repro_torch.nn import MLP
-from repro_torch.systems.onpolicy import _apply, _example_transition, _take, _value_and_grad
+from repro_torch.systems.onpolicy import (
+    _apply,
+    _example_transition,
+    _sync,
+    _take,
+    _value_and_grad,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class OffPolicyConfig:
     """Replay-family hyperparameters (same fields and defaults as the reference).
 
-    The reference's ``distributed_axis`` (gradient pmean over a mesh axis)
-    is not ported yet.
+    ``distributed_axis`` averages each update's gradients over the ranks
+    bound to that axis (`repro_torch.distributed.collective.pmean`).
     """
 
     hidden_sizes: Sequence[int] = (64, 64)
@@ -56,6 +62,7 @@ class OffPolicyConfig:
     shared_weights: bool = True
     max_grad_norm: float = 10.0
     fingerprint: bool = False
+    distributed_axis: Optional[str] = None  # pmean grads over this axis's ranks
     updates_per_step: int = 1
 
 
@@ -199,6 +206,7 @@ def make_offpolicy_system(env, cfg: OffPolicyConfig, mixer=None, name="madqn") -
         loss, grads = _value_and_grad(
             loss_fn, train.params, train.target_params, batch, train.steps
         )
+        grads = _sync(cfg, grads)
         with torch.no_grad():
             params, opt_state = _apply(opt, grads, train.opt_state, train.params,
                                        lanes.count(generator))

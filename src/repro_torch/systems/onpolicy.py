@@ -23,10 +23,19 @@ env-indexed tensors have the batch shape ``(S, N)``, each lane draws its
 actions and shuffles from its own generator, and the losses, advantage
 normalisation and gradient clipping reduce within a lane.
 
+With ``use_vtrace`` the update swaps GAE for V-trace
+(`repro_torch.systems.vtrace`): it re-evaluates the stored trajectory's
+log-probs and values under the current params (the recurrent variants
+re-run the actor over the window, one more unroll through the memory
+core) and importance-weights them against the behaviour log-probs the
+executor stored, as the async runner's stale actors need.  With
+``distributed_axis`` every minibatch's gradients are averaged over the
+ranks bound to that axis (`repro_torch.distributed.collective.pmean`)
+before the optimizer step.
+
 Action draws: the reference's ``jax.random.categorical`` cannot be matched
 by a torch draw, so actions are Gumbel-max draws from the run's generator;
-greedy actions are the same argmax.  V-trace (``use_vtrace``) is not
-ported yet.
+greedy actions are the same argmax.
 """
 from __future__ import annotations
 
@@ -45,9 +54,11 @@ from repro_torch.core.buffer import (
 )
 from repro_torch.core.system import System
 from repro_torch.core.types import Carry, TrainState, Transition
+from repro_torch.distributed.collective import pmean
 from repro_torch.envs.api import EnvSpec, StepType
 from repro_torch.nn import MLP
 from repro_torch.nn.recurrent import make_core, window_start_carry
+from repro_torch.systems.vtrace import vtrace_advantages
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -68,7 +79,10 @@ class PPOConfig:
     rollout_len: int = 128
     shared_weights: bool = True
     recurrent_core: str = "gru"
-    use_vtrace: bool = False  # not ported: True raises
+    distributed_axis: str | None = None
+    use_vtrace: bool = False
+    vtrace_clip_rho: float = 1.0
+    vtrace_clip_c: float = 1.0
 
 
 def _make_gae(cfg: PPOConfig, ids):
@@ -95,6 +109,24 @@ def _make_gae(cfg: PPOConfig, ids):
         return adv, ret
 
     return gae
+
+
+def _vtrace(cfg: PPOConfig, ids, traj: Transition, curr_logp, curr_values, last_values):
+    """Per-agent V-trace advantages and value targets, in the places GAE's take."""
+    adv, ret = {}, {}
+    disc = traj.discount * cfg.gamma
+    for a in ids:
+        adv[a], ret[a] = vtrace_advantages(
+            curr_logp[a], traj.extras["logp"][a], curr_values[a], last_values[a],
+            traj.rewards[a], disc, clip_rho=cfg.vtrace_clip_rho, clip_c=cfg.vtrace_clip_c,
+            lam=cfg.gae_lambda,
+        )
+    return adv, ret
+
+
+def _sync(cfg, grads):
+    """The gradients averaged over ``cfg.distributed_axis``'s ranks, or as they are without one."""
+    return pmean(grads, cfg.distributed_axis) if cfg.distributed_axis else grads
 
 
 def _ppo_surrogate(cfg: PPOConfig, lp, lp_all, logp_old, adv, v, returns, lane_dim=None):
@@ -252,8 +284,6 @@ def make_ppo_networks(env, cfg: PPOConfig, centralised: bool):
 
 def make_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str) -> System:
     """Build a feed-forward PPO `System` (IPPO or MAPPO by critic input)."""
-    if cfg.use_vtrace:
-        raise NotImplementedError("V-trace is not ported yet")
     spec: EnvSpec = env.spec()
     ids, num_actions, init_params, logits_fn, value_fn = make_ppo_networks(
         env, cfg, centralised
@@ -313,7 +343,7 @@ def make_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str) -> System
         return total
 
     def update(train: TrainState, buffer, generator):
-        """Consume the rollout: GAE, then epochs of shuffled row minibatches."""
+        """Consume the rollout: GAE or V-trace, then epochs of shuffled row minibatches."""
         traj: Transition = rollout_take(buffer)  # leaves (T, [S,] B, ...)
         S = lanes.count(generator)
         T, B = traj.discount.shape[0], traj.discount.shape[-1]
@@ -323,7 +353,19 @@ def make_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str) -> System
             last_values = {
                 a: value_fn(train.params, a, critic_obs(last_obs, last_state, a)) for a in ids
             }
-            adv, ret = gae(traj, last_values)
+            if cfg.use_vtrace:
+                # the stored trajectory under the current params
+                curr_logp = {
+                    a: _take(torch.log_softmax(logits_fn(train.params, a, traj.obs[a]), dim=-1),
+                             traj.actions[a])
+                    for a in ids
+                }
+                curr_values = {
+                    a: value_fn(train.params, a, critic_obs(traj.obs, traj.state, a)) for a in ids
+                }
+                adv, ret = _vtrace(cfg, ids, traj, curr_logp, curr_values, last_values)
+            else:
+                adv, ret = gae(traj, last_values)
         data = dict(
             obs=traj.obs,
             state=traj.state,
@@ -349,6 +391,7 @@ def make_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str) -> System
                 idx = perm[..., i * mb_size : (i + 1) * mb_size]
                 mb = tree_map(lambda x: _pick(x, idx, 0 if S is None else 1, lane), flat)
                 loss, grads = _value_and_grad(loss_fn, params, mb, None if S is None else 0)
+                grads = _sync(cfg, grads)
                 with torch.no_grad():
                     params, opt_state = _apply(opt, grads, opt_state, params, S)
                 losses.append(loss)
@@ -452,8 +495,6 @@ def make_recurrent_ppo_networks(env, cfg: PPOConfig, centralised: bool = False):
 
 def make_recurrent_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str) -> System:
     """Build a recurrent PPO `System` (rec-IPPO or rec-MAPPO by critic input)."""
-    if cfg.use_vtrace:
-        raise NotImplementedError("V-trace is not ported yet")
     spec: EnvSpec = env.spec()
     ids, num_actions, init_params, actor, critic = make_recurrent_ppo_networks(
         env, cfg, centralised
@@ -521,7 +562,7 @@ def make_recurrent_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str)
         return total
 
     def update(train: TrainState, buffer, generator):
-        """Consume the rollout: GAE, then epochs of sequence minibatches."""
+        """Consume the rollout: GAE or V-trace, then epochs of sequence minibatches."""
         traj: Transition = rollout_take(buffer)  # leaves (T, [S,] B, ...)
         S = lanes.count(generator)
         B = traj.discount.shape[-1]
@@ -533,16 +574,25 @@ def make_recurrent_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str)
         # the stored start carry, then one step on the final next-observation.
         last_obs = tree_map(lambda x: x[-1], traj.next_obs)
         last_state = traj.next_state[-1]
-        last_values = {}
+        last_values, curr_values = {}, {}
         with torch.no_grad():
             for a in ids:
-                h_t, _ = critic.unroll(
+                h_t, v_seq = critic.unroll(
                     train.params, a, carry0.hidden["critic"][a],
                     critic_obs(traj.obs, traj.state, a), resets,
                 )
                 _, v = critic.step(train.params, a, h_t, critic_obs(last_obs, last_state, a))
-                last_values[a] = v[..., 0]
-            adv, ret = gae(traj, last_values)
+                last_values[a], curr_values[a] = v[..., 0], v_seq[..., 0]
+            if cfg.use_vtrace:
+                # current log-probs: an actor re-run over the stored window
+                curr_logp = {}
+                for a in ids:
+                    _, lg = actor.unroll(train.params, a, carry0.hidden["actor"][a],
+                                         traj.obs[a], resets)
+                    curr_logp[a] = _take(torch.log_softmax(lg, dim=-1), traj.actions[a])
+                adv, ret = _vtrace(cfg, ids, traj, curr_logp, curr_values, last_values)
+            else:
+                adv, ret = gae(traj, last_values)
 
         data = dict(
             obs=traj.obs,
@@ -568,6 +618,7 @@ def make_recurrent_ppo_system(env, cfg: PPOConfig, centralised: bool, name: str)
                 mb = tree_map(lambda x: _pick(x, idx, env_axis, lane), data)
                 mb["carry0"] = tree_map(lambda x: _pick(x, idx, env_axis - 1, lane), carry0)
                 loss, grads = _value_and_grad(loss_fn, params, mb, None if S is None else 1)
+                grads = _sync(cfg, grads)
                 with torch.no_grad():
                     params, opt_state = _apply(opt, grads, opt_state, params, S)
                 losses.append(loss)

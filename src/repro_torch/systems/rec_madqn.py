@@ -23,8 +23,9 @@ kernel: 5 an update for a shared stack.
 As in the replay family (`repro_torch.systems.offpolicy`), the update
 count ``TrainState.steps`` is a Python int, so eps and the target sync are
 decided on the host; every function also runs seed lanes
-(`repro_torch.lanes`), and the losses reduce within a lane.  The
-reference's ``distributed_axis`` is not ported yet.
+(`repro_torch.lanes`), and the losses reduce within a lane.  With
+``distributed_axis`` each update's gradients are averaged over the ranks
+bound to that axis.
 """
 from __future__ import annotations
 
@@ -41,7 +42,13 @@ from repro_torch.envs.api import EnvSpec, StepType
 from repro_torch.nn import MLP
 from repro_torch.nn.recurrent import burn_in_carry, make_core, window_start_carry
 from repro_torch.systems.offpolicy import _explore_draws, eps_at
-from repro_torch.systems.onpolicy import _apply, _example_transition, _take, _value_and_grad
+from repro_torch.systems.onpolicy import (
+    _apply,
+    _example_transition,
+    _sync,
+    _take,
+    _value_and_grad,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +58,7 @@ class RecMadqnConfig:
     A replay window is ``burn_in + seq_len`` steps; ``stride`` spaces
     window starts (None: ``seq_len``, so consecutive windows overlap by the
     burn-in).  ``buffer_capacity``, ``min_windows`` and ``batch_size``
-    count windows.  The reference's ``distributed_axis`` is not ported.
+    count windows.
     """
 
     hidden_sizes: Sequence[int] = (64,)
@@ -70,6 +77,7 @@ class RecMadqnConfig:
     shared_weights: bool = True
     recurrent_core: str = "gru"
     max_grad_norm: float = 10.0
+    distributed_axis: Optional[str] = None
     updates_per_step: int = 1
 
 
@@ -208,6 +216,7 @@ def make_rec_madqn(env, cfg: RecMadqnConfig = RecMadqnConfig()) -> System:
         carry0 = window_start_carry(win.extras, initial_carry, win.discount.shape[1:], device)
         win = win._replace(extras={k: v for k, v in win.extras.items() if k != "carry_in"})
         loss, grads = _value_and_grad(loss_fn, train.params, train.target_params, win, carry0)
+        grads = _sync(cfg, grads)
         with torch.no_grad():
             params, opt_state = _apply(opt, grads, train.opt_state, train.params,
                                        lanes.count(generator))

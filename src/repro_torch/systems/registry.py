@@ -1,7 +1,8 @@
 """The system registry: the ported algorithms behind one constructor.
 
 Port of `repro.systems.registry`: a name -> `SystemEntry` table of the
-reference's thirteen systems plus ``make_system(name, env, **overrides)``
+reference's thirteen systems plus ``make_system(name, env, *,
+distributed_axis=None, **overrides)``
 and ``make_pair(system, env)``, so the launcher and user code build every
 system the same way.  Each entry declares the action regime its algorithm
 supports and whether it needs homogeneous agents (DIAL's shared recurrent
@@ -183,11 +184,12 @@ def compatibility(system_name: str, env_name: str, env_kwargs=None) -> Optional[
 # ------------------------------------------------------------ constructors
 
 
-def make_system(name: str, env, **overrides):
+def make_system(name: str, env, *, distributed_axis: Optional[str] = None, **overrides):
     """Build a registered system on ``env`` (the `repro_torch.envs.make_env` twin).
 
     ``overrides`` are fields of the entry's config dataclass (e.g.
-    ``make_system("ippo", env, rollout_len=64)``).
+    ``make_system("ippo", env, rollout_len=64)``); ``distributed_axis``
+    averages the gradients over that axis's ranks, for the sharded runner.
     """
     if name not in REGISTRY:
         raise KeyError(f"unknown system {name!r}; registered: {sorted(REGISTRY)}")
@@ -196,6 +198,8 @@ def make_system(name: str, env, **overrides):
     reason = check_support(name, env.spec())
     if reason is not None:
         raise ValueError(f"incompatible system/env: {reason}")
+    if distributed_axis is not None:
+        overrides = dict(overrides, distributed_axis=distributed_axis)
     system = entry.factory(env, entry.config_cls(**overrides))
     # post-build: the System's own declaration must agree with its entry
     reason = _support_reason(name, system.action_space, entry.homogeneous_only, system.spec)
@@ -204,8 +208,8 @@ def make_system(name: str, env, **overrides):
     return system
 
 
-def make_pair(system_name: str, env_name: str, *, env_kwargs: Optional[dict] = None,
-              **overrides):
+def make_pair(system_name: str, env_name: str, *, distributed_axis: Optional[str] = None,
+              env_kwargs: Optional[dict] = None, **overrides):
     """Build ``(env, system)`` by name; ``env_kwargs`` go to the env's constructor.
 
     A continuous-control system turns on the env's ``continuous=True``
@@ -214,4 +218,4 @@ def make_pair(system_name: str, env_name: str, *, env_kwargs: Optional[dict] = N
     _known(system_name, env_name)
     kwargs = _env_kwargs_for(system_name, env_name, env_kwargs)
     env = ENV_REGISTRY[env_name](**kwargs)
-    return env, make_system(system_name, env, **overrides)
+    return env, make_system(system_name, env, distributed_axis=distributed_axis, **overrides)

@@ -258,7 +258,7 @@ def test_launcher_on_the_cpu_and_without_a_device(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_marl.main(["--system", "ippo", "--env", "spread", "--iterations", "8"])
     with pytest.raises(SystemExit):  # a flag the port does not take is refused
-        train_marl.parse_args(["--runner", "sharded"])
+        train_marl.parse_args(["--log-every", "10"])
 
 
 def test_registry_compatibility_and_make_pair():

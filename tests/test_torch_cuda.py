@@ -34,7 +34,9 @@ RIAL's (the rollout, the message carry) and a replay system's on each of
 the four envs that draw at reset or inside ``step`` (switch_game's next
 prisoner, robot_warehouse's re-requests).  A linear-core rec-MADQN update
 and a fused no-channel DIAL update launch the recurrent-scan kernel as
-often as their unrolls say.
+often as their unrolls say.  The async actor/learner runner's ticks of
+ippo and vdn (2 actors, a stale snapshot, the queue's pushes and pops, the
+learner's updates) never wait on the card either.
 """
 import pytest
 
@@ -245,6 +247,33 @@ def test_matrix_iterations_never_wait_on_the_card(cuda, name, env, overrides):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert st.train.steps > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,overrides", [
+    ("ippo", dict(hidden_sizes=(16, 16), rollout_len=4, epochs=1, num_minibatches=2)),
+    ("vdn", dict(hidden_sizes=(16, 16), batch_size=8, buffer_capacity=64, min_replay=16,
+                 target_update_period=2)),
+])
+def test_async_ticks_never_wait_on_the_card(cuda, name, overrides):
+    from repro_torch.distributed.impala import make_async
+    from repro_torch.systems.registry import make_pair
+
+    # horizon 3: the episodes end and restart among the checked ticks
+    _, system = make_pair(name, "spread", env_kwargs={"horizon": 3}, **overrides)
+    program = make_async(system, 64, 4, 2, param_sync_every=2, device=cuda)
+    st = program.init_state(0)
+    for _ in range(3):  # the dataset fills and the first updates warm up
+        st, _ = program.tick(st)
+    before = st.updates
+    assert before > 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            st, metrics = program.tick(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert st.updates > before and st.dropped == 0 and metrics["staleness"] >= 0
 
 
 @pytest.mark.cuda

@@ -195,5 +195,9 @@ def test_update_matches(num_minibatches, monkeypatch):
 
 
 def test_vtrace_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ton.make_ippo(make_env("spread"), ton.PPOConfig(use_vtrace=True))
+    # V-trace and distributed_axis are ported now (tests/test_torch_vtrace.py holds them
+    # against the reference): the flag builds, and the config's fields and defaults are the
+    # reference's
+    assert ton.make_ippo(make_env("spread"), ton.PPOConfig(use_vtrace=True)).name == "ippo"
+    theirs = {f.name: f.default for f in dataclasses.fields(jon.PPOConfig)}
+    assert {f.name: f.default for f in dataclasses.fields(ton.PPOConfig)} == theirs

@@ -201,8 +201,8 @@ def test_train_anakin_and_evaluate_on_cpu():
     assert all(bool(torch.isfinite(v).all()) for v in m.values())
     ev = evaluate(tsys, st.train, 0, num_episodes=6, num_envs=4, device="cpu")
     assert ev.episode_return.shape == (6,) and (ev.episode_length == HORIZON).all()
-    with pytest.raises(NotImplementedError):
-        ton.make_rec_ippo(MatrixGame(), ton.PPOConfig(use_vtrace=True))
+    # V-trace is ported (tests/test_torch_vtrace.py): the flag builds
+    assert ton.make_rec_ippo(MatrixGame(), ton.PPOConfig(use_vtrace=True)).name == "rec_ippo"
 
 
 def test_import_loads_no_jax_and_no_gpu():

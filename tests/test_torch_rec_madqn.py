@@ -236,7 +236,7 @@ def test_config_defaults_and_window_checks_match_the_reference():
 
     theirs = {f.name: f.default for f in dataclasses.fields(JCfg)}
     ours = {f.name: f.default for f in dataclasses.fields(trec.RecMadqnConfig)}
-    assert theirs.pop("distributed_axis") is None  # not ported
+    assert theirs["distributed_axis"] is None  # ported: gradient sync over the axis's ranks
     assert ours == theirs
     env = make_env("matrix_game")
     for bad in (dict(seq_len=0), dict(burn_in=-1), dict(stride=0)):

@@ -154,5 +154,5 @@ def test_registry_entries_and_continuous_mode():
 def test_config_defaults_match_the_reference():
     theirs = {f.name: f.default for f in dataclasses.fields(JCfg)}
     ours = {f.name: f.default for f in dataclasses.fields(tmad.MaddpgConfig)}
-    assert theirs.pop("distributed_axis") is None  # not ported
+    assert theirs["distributed_axis"] is None  # ported: gradient sync over the axis's ranks
     assert ours == theirs
