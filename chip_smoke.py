@@ -172,6 +172,36 @@ lies on rec-IPPO's updates under them and on V-trace's actor re-run:
     gloo ranks sharing cuda:0 (Adam moments equal bitwise, each rank's
     own params), and the MARL launcher's --runner async on the card.
 
+Telemetry, run records and the train -> checkpoint -> serve / eval
+workflow, the tenth slice; recurrent_scan lies on rec-IPPO's updates in
+its training runs, not on the served tick (a memory core's ``step``):
+
+31. train: ippo and rec-IPPO (linear core) on matrix_game, and ippo on
+    spread, through the launcher (`repro_torch.launch.train_marl.main`)
+    at serve_marl's defaults (512 iterations x 8 envs, the smoke
+    operating point) with --log-every, --log-dir, --run-id, --profile and
+    --save-checkpoint: the run record's sections, its provenance naming
+    the card and its power limit, the profiler's trace of one update
+    cycle written, the streamed rows, rec-IPPO's recurrent_scan launches
+    over the call what its updates need (the run's, the two profiled
+    update cycles', the phase timing's), and `roofline_summary` counting
+    the kernel's calls and bytes of one update;
+32. taps: ippo/spread and rec-IPPO (linear)/matrix_game at 8 seed lanes x
+    256 envs x 64 iterations, the tap every 16 iterations on and off, in
+    turns: params, optimizer state and metrics equal bitwise; the tap's
+    cost in wall time;
+33. serve: each checkpoint restored and served at 2 and 8 slots to 8
+    streams x 4 episodes at 0.2 requests a tick: p50 / p99 ms a decision,
+    decisions/s, mean return; the device's idle share over 32 ticks of a
+    full pool from torch.profiler; greedy served returns equal the
+    evaluator's for its resets; the first 64 ticks' actions (2 slots) on
+    the card equal the CPU's but for near ties (top-two CPU logits within
+    1e-5), counted; ippo/spread at 256 slots to 256 streams, the same;
+34. sweep: `repro_torch.launch.eval_marl` on ippo, vdn, rec_ippo and
+    maddpg x matrix_game and spread, 2 seeds, 8 training iterations, into
+    results/port/: all 8 cells, maddpg x matrix_game with the registry's
+    reason.
+
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -304,6 +334,17 @@ PIN_PPO = dict(hidden_sizes=(32, 32), rollout_len=8, epochs=1, num_minibatches=2
 PIN_VDN = dict(hidden_sizes=(32, 32), batch_size=32, buffer_capacity=5_000, min_replay=64)
 PIN_TOL = 1e-5
 SHARDED_RUNS = [("ippo", "spread"), ("madqn", "matrix_game")]
+# slice 10, at serve_marl's defaults: train-then-serve checkpoints of 512 iterations x 8
+# envs at the smoke operating point on matrix_game, served at 2 and 8 slots to 8 streams
+# x 4 episodes at 0.2 requests a tick a stream, greedy; ippo on spread at 256 slots (the
+# runners' env count) to 256 streams; the first 64 ticks held card vs CPU; the taps
+# on/off runs at 8 lanes x 256 envs x 64 iterations; the sweep at 2 seeds x 8 iterations
+SERVE_ROOT = "results/port/chip_smoke"  # git-ignored
+SERVE_TRAIN_ITERATIONS, SERVE_TRAIN_ENVS, SERVE_LOG_EVERY = 512, 8, 64
+SERVE_SLOTS, SERVE_STREAMS, SERVE_EPISODES, SERVE_RATE = (2, 8), 8, 4, 0.2
+WIDE_SLOTS, PARITY_TICKS, NEAR_TIE = 256, 64, 1e-5
+TAP_SEEDS, TAP_ENVS, TAP_ITERATIONS, TAP_EVERY = 8, 256, 64, 16
+SWEEP_SYSTEMS, SWEEP_ENVS = ("ippo", "vdn", "rec_ippo", "maddpg"), ("matrix_game", "spread")
 
 
 def _require(cond, msg):
@@ -1467,6 +1508,393 @@ def distributed_phase(tag, ops):
             "launches_async_rec_ippo_vtrace": rec["rec_ippo linear vtrace"]["launches"]}
 
 
+def _serve_sets(name, extra=()):
+    """The launcher's ``--set`` flags for ``name`` at the smoke operating point (and ``extra``)."""
+    from repro_torch.systems.registry import smoke_overrides
+
+    sets = [f"{k}={v!r}" for k, v in smoke_overrides(name).items()] + list(extra)
+    return [flag for s in sets for flag in ("--set", s)]
+
+
+def _scan_update_bytes(T, N, M, n, H):
+    """recurrent_scan's registered bytes for one rec-IPPO update (op_cost's count).
+
+    A forward scan reads a, b and writes the output (T, B, H) float32, reads
+    h0 (B, H) and the reset mask (T, B) in bytes; its reverse adjoint the
+    same but h0.  An update runs one bootstrap critic unroll an agent over
+    all N envs, then in each of M minibatches of N / M envs an actor and a
+    critic unroll an agent, forward and backward.
+    """
+    fwd = lambda B: 3 * T * B * H * 4 + B * H * 4 + T * B
+    bwd = lambda B: 3 * T * B * H * 4 + T * B
+    return n * fwd(N) + M * n * 2 * (fwd(N // M) + bwd(N // M))
+
+
+def serve_train(ops, root, gpu):
+    """Train ippo and rec-IPPO (linear core) through the launcher with every telemetry flag.
+
+    At serve_marl's defaults (matrix_game, 512 iterations x 8 envs, the
+    smoke operating point), with --log-every, --log-dir, --run-id,
+    --profile and --save-checkpoint; ippo on spread the same way, for the
+    256-slot serving cell.  rec-IPPO's recurrent_scan launches over its
+    launcher call must be what the updates' structure predicts.
+    """
+    from repro_torch.launch import train_marl
+    from repro_torch.systems import PPOConfig
+    from repro_torch.systems.registry import smoke_overrides
+
+    out = {}
+    for label, name, env, extra in (("ippo", "ippo", "matrix_game", ()),
+                                    ("rec_ippo", "rec_ippo", "matrix_game",
+                                     ("recurrent_core='linear'",)),
+                                    ("ippo_spread", "ippo", "spread", ())):
+        ops.linear_recurrent_scan.launches = 0
+        (res,), wall = _timed_cuda(lambda: [train_marl.main([
+            "--system", name, "--env", env, "--iterations", str(SERVE_TRAIN_ITERATIONS),
+            "--num-envs", str(SERVE_TRAIN_ENVS), *_serve_sets(name, extra),
+            "--log-every", str(SERVE_LOG_EVERY), "--log-dir", f"{root}/runs", "--run-id", label,
+            "--profile", "--save-checkpoint", f"{root}/ckpt/{label}"])])
+        launches = ops.linear_recurrent_scan.launches
+        with open(res["run_record"]) as f:
+            record = json.load(f)
+        for section in ("run_id", "provenance", "config", "timing", "metrics", "retrace",
+                        "profile"):
+            _require(section in record, f"{label}: run record lacks {section!r}")
+        prov = record["provenance"]
+        _require(prov["backend"] == "cuda" and prov["device_kind"] == torch.cuda.get_device_name(0)
+                 and f"{prov['gpu']}, {prov['power_limit']}" == gpu,
+                 f"{label}: run record provenance {prov} does not name the card ({gpu})")
+        prof = record["profile"]
+        _require("skipped" not in prof and os.path.getsize(prof["trace_file"]) > 0,
+                 f"{label}: no profiler trace ({prof})")
+        _require(res["telemetry_rows"] == SERVE_TRAIN_ITERATIONS // SERVE_LOG_EVERY,
+                 f"{label}: {res['telemetry_rows']} telemetry rows")
+        row = {"wall_s": wall, "record": res["run_record"], "roofline": prof["roofline"],
+               "phases": record["timing"]["phases"], "eval_return": res["eval_return"],
+               "launches": launches}
+        if name == "rec_ippo":
+            cfg = PPOConfig(**smoke_overrides(name), recurrent_core="linear")
+            n, M = 2, cfg.num_minibatches
+            per_update = n + cfg.epochs * M * n * 2 * 2
+            # the run's updates, --profile's update cycle twice (traced, then
+            # counted), and the run record's phase timing: a warm update and 3
+            # timed ones
+            updates = SERVE_TRAIN_ITERATIONS // cfg.rollout_len + 2 + 4
+            _require(launches == updates * per_update,
+                     f"rec_ippo: recurrent_scan launched {launches}x over the launcher call, "
+                     f"expected {updates} updates x {per_update}")
+            scan = prof["roofline"]["custom_ops"].get("recurrent_scan", {})
+            want = _scan_update_bytes(cfg.rollout_len, SERVE_TRAIN_ENVS, M, n,
+                                      cfg.hidden_sizes[-1])
+            _require(scan.get("calls") == per_update and scan.get("bytes") == want,
+                     f"rec_ippo: roofline_summary counted recurrent_scan {scan}, expected "
+                     f"{per_update} calls and {want} bytes")
+            row.update(launches_per_update=per_update, updates=updates, scan_bytes=want)
+        out[label] = row
+    return out
+
+
+def _state_equal(a, b):
+    from repro_torch.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def taps_on_off():
+    """ippo/spread and rec-IPPO (linear)/matrix_game, tap on and off: bitwise, and the tap's cost.
+
+    8 seed lanes x 256 envs x 64 iterations at the smoke operating point (2
+    updates a lane); after a warm-up run, runs in turns off, on, on, off.
+    """
+    from repro_torch.core import make_anakin
+    from repro_torch.obs import MetricTap, SeedAggregator
+    from repro_torch.systems.registry import make_pair, smoke_overrides
+
+    class Rows:
+        def __init__(self):
+            self.rows = []
+
+        def write(self, metrics, step=None):
+            self.rows.append(step)
+
+        def close(self):
+            pass
+
+    out = {}
+    for label, name, env, extra in (("ippo", "ippo", "spread", {}),
+                                    ("rec_ippo linear", "rec_ippo", "matrix_game",
+                                     {"recurrent_core": "linear"})):
+        _, system = make_pair(name, env, **smoke_overrides(name), **extra)
+        runs, walls = {}, {"off": [], "on": []}
+        _timed_cuda(lambda: make_anakin(system, TAP_ITERATIONS, TAP_ENVS, num_seeds=TAP_SEEDS,
+                                        device="cuda")(1))
+        for mode in ("off", "on", "on", "off"):
+            sink = Rows()
+            tap = (MetricTap(SeedAggregator(sink), TAP_EVERY, TAP_SEEDS * TAP_ENVS)
+                   if mode == "on" else None)
+            program = make_anakin(system, TAP_ITERATIONS, TAP_ENVS, num_seeds=TAP_SEEDS,
+                                  device="cuda", log_every=TAP_EVERY if tap else 0,
+                                  log_callback=tap)
+            (st, metrics), wall = _timed_cuda(lambda: program(0))
+            walls[mode].append(wall)
+            if tap is not None:
+                _require(sink.rows == list(range(TAP_EVERY, TAP_ITERATIONS + 1, TAP_EVERY)),
+                         f"taps {label}: rows at {sink.rows}")
+            runs.setdefault(mode, (st.train, metrics))
+            _require(_state_equal(runs[mode], (st.train, metrics)),
+                     f"taps {label}: two runs of one mode differ")
+        _require(int(runs["on"][0].steps.min()) == 2, f"taps {label}: {runs['on'][0].steps}")
+        _require(_state_equal(runs["off"], runs["on"]),
+                 f"taps {label}: the tapped run's params, optimizer state or metrics differ")
+        out[label] = {"walls_off": walls["off"], "walls_on": walls["on"],
+                      "cost_s": statistics.median(walls["on"]) - statistics.median(walls["off"]),
+                      "emissions": TAP_ITERATIONS // TAP_EVERY}
+    return out
+
+
+def _logit_recorder(name, system):
+    """``system`` whose greedy step also records each agent's logits (for the near-tie check)."""
+    from repro_torch.systems import PPOConfig
+    from repro_torch.systems.onpolicy import make_ppo_networks, make_recurrent_ppo_networks
+    from repro_torch.systems.registry import smoke_overrides
+
+    cfg = PPOConfig(**smoke_overrides(name), **(
+        {"recurrent_core": "linear"} if name == "rec_ippo" else {}))
+    if name == "rec_ippo":
+        actor = make_recurrent_ppo_networks(system.env, cfg, False)[3]
+        logits = lambda p, a, obs, carry: actor.step(p, a, carry.hidden["actor"][a], obs[a])[1]
+    else:
+        logits_fn = make_ppo_networks(system.env, cfg, False)[3]
+        logits = lambda p, a, obs, carry: logits_fn(p, a, obs[a])
+    log = []
+
+    def select_actions(train, obs, state, carry, generator, training=True):
+        with torch.no_grad():
+            log.append({a: logits(train.params, a, obs, carry) for a in system.spec.agent_ids})
+        return system.select_actions(train, obs, state, carry, generator, training=training)
+
+    return dataclasses.replace(system, select_actions=select_actions), log
+
+
+def _drive(engine, requests, max_ticks):
+    """``serve_workload``'s arrival loop for at most ``max_ticks`` ticks: the decisions a tick."""
+    pending = sorted(requests, key=lambda r: (r.arrival_tick, r.uid))
+    ticks, clock, i = [], 0, 0
+    while len(ticks) < max_ticks:
+        while i < len(pending) and pending[i].arrival_tick <= clock:
+            engine.submit(pending[i])
+            i += 1
+        if engine.idle():
+            if i >= len(pending):
+                break
+            clock = pending[i].arrival_tick
+            continue
+        ticks.append(engine.tick())
+        clock += 1
+    return ticks
+
+
+def card_vs_cpu_actions(label, name, directory, slots, streams):
+    """The first 64 ticks' served actions on the card against the CPU, near ties counted.
+
+    Both engines serve the same requests with the same resets (made on the
+    CPU from each request's seed); a decision that differs must be a near
+    tie on the CPU (its top two logits within NEAR_TIE), and the rest of
+    that episode is then not compared (the next observation may differ).
+    """
+    from repro_torch.serve import DecisionEngine, load_policy, poisson_requests
+    from repro_torch.tree import tree_map
+
+    def requests(device):
+        reqs = poisson_requests(streams, SERVE_EPISODES, SERVE_RATE, seed=0)
+        for r in reqs:
+            env_reset = cpu_system.env.reset(1, torch.device("cpu"),
+                                             torch.Generator().manual_seed(r.seed))
+            r.reset = tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor) else x,
+                               env_reset)
+        return reqs
+
+    _, cpu_system, cpu_train = load_policy(directory, device="cpu")
+    _, card_system, card_train = load_policy(directory, device="cuda")
+    recorded, log = _logit_recorder(name, cpu_system)
+    cpu_reqs, card_reqs = requests("cpu"), requests("cuda")
+    cpu_ticks = _drive(DecisionEngine(recorded, cpu_train, max_slots=slots, warmup=False,
+                                      device="cpu"), cpu_reqs, PARITY_TICKS)
+    card_ticks = _drive(DecisionEngine(card_system, card_train, max_slots=slots, device="cuda"),
+                        card_reqs, PARITY_TICKS)
+    _require(len(cpu_ticks) == len(card_ticks) == PARITY_TICKS,
+             f"{label}: {len(cpu_ticks)} / {len(card_ticks)} ticks")
+    slot_of = {r.uid: r.slot for r in cpu_reqs}
+    decisions, near_ties, skipped, diverged = 0, 0, 0, set()
+    for t, (cpu, card) in enumerate(zip(cpu_ticks, card_ticks)):
+        _require(set(cpu) == set(card), f"{label}: tick {t} served other requests")
+        for uid, decision in cpu.items():
+            if uid in diverged:
+                skipped += 1
+                continue
+            for a, act in decision.items():
+                decisions += 1
+                if int(card[uid][a]) == int(act):
+                    continue
+                top2 = torch.topk(log[t][a][slot_of[uid]], 2).values
+                gap = float(top2[0] - top2[1])
+                _require(gap <= NEAR_TIE, f"{label}: tick {t} request {uid} {a}: card "
+                         f"{int(card[uid][a])}, CPU {int(act)}, top-two logit gap {gap:.3e}")
+                near_ties += 1
+                diverged.add(uid)
+    return {"decisions": decisions, "near_ties": near_ties, "skipped_after_tie": skipped}
+
+
+def _serve_cell(directory, slots, streams):
+    from repro_torch.serve import DecisionEngine, load_policy, poisson_requests, serve_workload
+
+    _, system, train = load_policy(directory, device="cuda")
+    engine = DecisionEngine(system, train, max_slots=slots, device="cuda")
+    return serve_workload(engine, poisson_requests(streams, SERVE_EPISODES, SERVE_RATE, seed=0))
+
+
+def served_equals_evaluator(directory, slots):
+    """Greedy served returns = `evaluate`'s on the card, for the evaluator's own resets."""
+    from repro_torch.eval import evaluate
+    from repro_torch.serve import DecisionEngine, ServeRequest, load_policy
+    from repro_torch.tree import tree_map
+
+    _, system, train = load_policy(directory, device="cuda")
+    B, seed = 8, 7
+    ev = evaluate(system, train, seed, num_episodes=B, num_envs=B, device="cuda")
+    state, ts = system.env.reset(B, torch.device("cuda"),
+                                 torch.Generator("cuda").manual_seed(seed))
+    row = lambda tree, i: tree_map(lambda x: x[i:i + 1] if isinstance(x, torch.Tensor) else x,
+                                   tree)
+    engine = DecisionEngine(system, train, max_slots=slots, device="cuda")
+    for i in range(B):
+        engine.submit(ServeRequest(uid=i, reset=(row(state, i), row(ts, i))))
+    finished = sorted(engine.run_until_drained(), key=lambda r: r.uid)
+    served = torch.tensor([r.episode_return for r in finished], device="cuda")
+    return bool(torch.equal(served, ev.episode_return)), served.tolist()
+
+
+def engine_idle_share(directory, slots):
+    """The device's busy time and idle share over 32 ticks of a full pool of ``slots``.
+
+    4 x ``slots`` requests queued, so the pool stays full; the 32 ticks
+    after the first hold an episode boundary and its admission wave.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.breakdown import _device_summary
+    from repro_torch.serve import DecisionEngine, ServeRequest, load_policy
+
+    _, system, train = load_policy(directory, device="cuda")
+    engine = DecisionEngine(system, train, max_slots=slots, device="cuda")
+    for i in range(4 * slots):
+        engine.submit(ServeRequest(uid=i, seed=i))
+    engine.tick()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _timed_cuda(lambda: [engine.tick() for _ in range(32)])
+    return _device_summary(prof, wall)
+
+
+def serve_sweep(root):
+    """eval_marl on ippo, vdn, rec_ippo, maddpg x matrix_game, spread; 2 seeds, 8 iterations."""
+    from repro_torch.launch import eval_marl
+
+    out = f"{root}/BENCH_eval.json"
+    results, wall = _timed_cuda(lambda: eval_marl.main([
+        "--systems", *SWEEP_SYSTEMS, "--envs", *SWEEP_ENVS, "--seeds", "0", "1",
+        "--train-iterations", "8", "--out", out]))
+    cells = {(s, e): c for s, v in results["systems"].items() for e, c in v["envs"].items()}
+    _require(len(cells) == len(SWEEP_SYSTEMS) * len(SWEEP_ENVS), f"sweep: {len(cells)} cells")
+    _require(cells[("maddpg", "matrix_game")] == {
+        "compatible": False,
+        "reason": "maddpg supports continuous action spaces; env has discrete actions"},
+        f"sweep: maddpg x matrix_game {cells[('maddpg', 'matrix_game')]}")
+    _require(sum(not c["compatible"] for c in cells.values()) == 1, "sweep: incompatible cells")
+    _require(all(np.isfinite(c["aggregates"]["iqm"]) for c in cells.values() if c["compatible"]),
+             "sweep: non-finite IQM")
+    return {"wall_s": wall, "out": out, "cells": {
+        f"{s} x {e}": (c["aggregates"]["iqm"] if c["compatible"] else None)
+        for (s, e), c in cells.items()}}
+
+
+def serve_phase(tag, ops, gpu):
+    """Slice 10: telemetry, run records, train -> checkpoint -> serve / eval on the card."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = SERVE_ROOT
+    shutil.rmtree(root, ignore_errors=True)
+    trained = serve_train(ops, root, gpu)
+    for label, r in trained.items():
+        roof = r["roofline"]
+        print(f"train (serve): {label} through train_marl with --log-every {SERVE_LOG_EVERY} "
+              f"--log-dir --run-id --profile --save-checkpoint, {SERVE_TRAIN_ENVS} envs x "
+              f"{SERVE_TRAIN_ITERATIONS} iterations: call {r['wall_s']:.2f} s, greedy eval "
+              f"return {r['eval_return']:.3f}; phases {json.dumps(r['phases'])}; op cost of one "
+              f"update cycle ({roof['iterations']} iterations): {roof['hlo_flops']:.0f} flop, "
+              f"{roof['hlo_bytes']:.0f} B, recurrent_scan "
+              f"{json.dumps(roof['custom_ops'].get('recurrent_scan'))}; recurrent_scan launches "
+              f"{r['launches']} {tag}")
+    taps = taps_on_off()
+    for label, r in taps.items():
+        print(f"taps (serve): {label}, {TAP_SEEDS} seeds x {TAP_ENVS} envs x {TAP_ITERATIONS} "
+              f"iterations, tap every {TAP_EVERY}: params, optimizer state and metrics equal "
+              f"bitwise on and off; walls off {[round(w, 4) for w in r['walls_off']]} s, on "
+              f"{[round(w, 4) for w in r['walls_on']]} s: the tap costs {r['cost_s'] * 1e3:.2f} "
+              f"ms a run ({r['emissions']} emissions) {tag}")
+    cells = {}
+    for label in ("ippo", "rec_ippo"):
+        directory = f"{root}/ckpt/{label}"
+        for slots in SERVE_SLOTS:
+            c = _serve_cell(directory, slots, SERVE_STREAMS)
+            equal, served = served_equals_evaluator(directory, slots)
+            _require(equal, f"serve {label} slots {slots}: served returns {served} differ from "
+                            f"the evaluator's")
+            cells[(label, slots)] = c
+            idle = engine_idle_share(directory, slots)
+            _require(idle["device_idle_share"] is not None, "serve: the profiler saw no device time")
+            lat = c["latency"]
+            print(f"serve (engine): {label} matrix_game, slots {slots}, {SERVE_STREAMS} streams x "
+                  f"{SERVE_EPISODES} episodes at {SERVE_RATE}: p50 {lat['p50_ms']:.3f} ms, p99 "
+                  f"{lat['p99_ms']:.3f} ms a decision, {c['decisions_per_sec']:.0f} decisions/s, "
+                  f"{c['ticks']} ticks, mean return {c['episode_return_mean']:.3f}; greedy served "
+                  f"returns = the evaluator's; a full pool's 32 ticks under torch.profiler: wall "
+                  f"{idle['wall_s'] * 1e3:.2f} ms, device busy {idle['device_busy_s'] * 1e3:.2f} "
+                  f"ms, idle share {idle['device_idle_share']:.4f}, {idle['kernel_launches']} "
+                  f"kernel launches {tag}")
+        parity = card_vs_cpu_actions(label, label, directory, 2, SERVE_STREAMS)
+        print(f"serve parity: {label} slots 2, first {PARITY_TICKS} ticks, card vs CPU: "
+              f"{parity['decisions']} decisions compared, {parity['near_ties']} differ at a near "
+              f"tie (top-two CPU logits within {NEAR_TIE}), {parity['skipped_after_tie']} "
+              f"decisions after one not compared")
+    wide_dir = f"{root}/ckpt/ippo_spread"
+    c = _serve_cell(wide_dir, WIDE_SLOTS, WIDE_SLOTS)
+    cells[("ippo_spread", WIDE_SLOTS)] = c
+    idle = engine_idle_share(wide_dir, WIDE_SLOTS)
+    _require(idle["device_idle_share"] is not None, "serve: the profiler saw no device time")
+    lat = c["latency"]
+    print(f"serve (engine): ippo spread, slots {WIDE_SLOTS}, {WIDE_SLOTS} streams x "
+          f"{SERVE_EPISODES} episodes at {SERVE_RATE}: p50 {lat['p50_ms']:.3f} ms, p99 "
+          f"{lat['p99_ms']:.3f} ms a decision, {c['decisions_per_sec']:.0f} decisions/s, "
+          f"{c['ticks']} ticks, mean live slots {c['mean_live_slots']:.1f}, mean return "
+          f"{c['episode_return_mean']:.3f}; a full pool's 32 ticks under torch.profiler: wall "
+          f"{idle['wall_s'] * 1e3:.2f} ms, device busy {idle['device_busy_s'] * 1e3:.2f} ms, idle "
+          f"share {idle['device_idle_share']:.4f}, {idle['kernel_launches']} kernel launches "
+          f"{tag}")
+    parity = card_vs_cpu_actions("ippo spread", "ippo", wide_dir, WIDE_SLOTS, WIDE_SLOTS)
+    print(f"serve parity: ippo spread slots {WIDE_SLOTS}, first {PARITY_TICKS} ticks, card vs "
+          f"CPU: {parity['decisions']} decisions compared, {parity['near_ties']} differ at a near "
+          f"tie (top-two CPU logits within {NEAR_TIE}), {parity['skipped_after_tie']} decisions "
+          f"after one not compared")
+    sweep = serve_sweep(root)
+    print(f"sweep (eval_marl): {len(sweep['cells'])} cells into {sweep['out']} in "
+          f"{sweep['wall_s']:.2f} s, IQMs {json.dumps(sweep['cells'])} {tag}")
+    print(f"slice 10 (serve) in {time.perf_counter() - t0:.1f} s")
+    return {"launches_serve_train": trained["rec_ippo"]["launches"]}
+
+
 def _scan_inputs(b, S, di, N, dtype, seed):
     """Selective-scan operands on the card, drawn like prefill's (delta > 0, A < 0)."""
     g = torch.Generator("cuda").manual_seed(seed)
@@ -1975,6 +2403,9 @@ def main():
     # ---- slice 9: the distributed runners (async actor/learner, sharded)
     distributed = distributed_phase(tag, ops)
 
+    # ---- slice 10: telemetry, run records, train -> checkpoint -> serve / eval
+    serving = serve_phase(tag, ops, gpu)
+
     # ---- slice 2: Falcon-Mamba-7B greedy serving
     scan_worst = scan_parity(sops, sref)
     for case, e in scan_worst.items():
@@ -2092,6 +2523,7 @@ def main():
         "launches_rec_mappo": rec_mappo_launches,
         **{k: v for k, v in matrix.items() if k.startswith("launches")},
         **distributed,
+        **serving,
         "max_abs_err": max(*worst.values(), matrix["max_abs_err_matrix"]),
         "ms": main_row["ms"],
         "device_ms": main_row["device_ms"],

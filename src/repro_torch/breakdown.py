@@ -46,7 +46,6 @@ dispatch counter.
 from __future__ import annotations
 
 import argparse
-import ast
 import collections
 import json
 import os
@@ -71,7 +70,7 @@ from repro_torch.distributed.impala import default_unroll_len, make_async
 from repro_torch.envs import REGISTRY as ENVS
 from repro_torch.kernels.recurrent_scan import linear_recurrent_scan
 from repro_torch.systems.registry import REGISTRY as SYSTEMS
-from repro_torch.systems.registry import make_pair
+from repro_torch.systems.registry import make_pair, parse_overrides
 
 SCAN_KERNEL = "linear_scan_kernel"
 REPLAY_ITERATIONS = 64  # a replay system's iterations warmed up, then timed, then profiled
@@ -323,12 +322,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     overrides = {"recurrent_core": "linear"} if args.system.startswith("rec_") else {}
-    for item in args.set:
-        field, _, value = item.partition("=")
-        try:
-            overrides[field] = ast.literal_eval(value)
-        except (ValueError, SyntaxError):
-            overrides[field] = value  # a bare word: a string such as gru
+    overrides.update(parse_overrides(args.set))
     _, system = make_pair(args.system, args.env, **overrides)
     if args.runner == "async":
         if args.num_seeds:

@@ -27,6 +27,7 @@ actor/learner runner, is `repro_torch.distributed.impala`):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable
 
@@ -290,6 +291,47 @@ def _eval_seed(generator):
     return draw(generator)
 
 
+class _Tap:
+    """One run's telemetry tap: a pure observer, off the host's critical path.
+
+    The host counterpart of the reference's ``_tap_body``: after every
+    ``log_every``-th iteration ``it`` (0-based), ``log_callback(it,
+    updates, metrics)`` gets host copies of the trainer's update count and
+    that iteration's metrics, made in one transfer
+    (`repro_torch.obs.stream.HostCopy`).  The copy is queued behind the
+    iteration's work, and the callback runs at a later iteration, once the
+    copy has landed (asked with an event, no wait), or at `drain`, which
+    the runner calls before it returns, as the reference drains
+    ``jax.debug.callback``'s queue.  So the host never waits on the device
+    for the tap, and an iteration that does not log does nothing but ask
+    after the copies in flight.  Nothing the callback does can reach the
+    run, which only reads its own tensors.
+    """
+
+    def __init__(self, log_every: int, log_callback):
+        self.on = log_callback is not None and log_every > 0
+        self.log_every, self.callback = log_every, log_callback
+        self.pending: list = []
+
+    def __call__(self, it: int, updates, metrics) -> None:
+        if not self.on:
+            return
+        if (it + 1) % self.log_every == 0:
+            from repro_torch.obs.stream import HostCopy
+
+            self.pending.append((it, HostCopy((updates, metrics))))
+        self._deliver(wait=False)
+
+    def drain(self) -> None:
+        """Deliver every emission still in flight (waiting for the last copies)."""
+        self._deliver(wait=True)
+
+    def _deliver(self, wait: bool) -> None:
+        while self.pending and self.pending[0][1].ready(wait):
+            it, copy = self.pending.pop(0)
+            self.callback(it, *copy.result())
+
+
 def make_anakin(
     system: System,
     num_iterations: int,
@@ -299,6 +341,8 @@ def make_anakin(
     eval_num_envs=None,
     num_seeds=None,
     device=None,
+    log_every: int = 0,
+    log_callback=None,
 ):
     """Build the Anakin program as a reusable function of ``seed``.
 
@@ -326,6 +370,15 @@ def make_anakin(
     the state's train state, carry and env leaves (``(S, N, ...)``); the
     rollout storage stays time-major, ``(T, S, N, ...)``.  Lane ``s`` is
     the single run with its seed, up to the order of sums.
+
+    With ``log_every > 0`` and a ``log_callback`` (typically a
+    `repro_torch.obs.MetricTap`), every ``log_every``-th iteration calls
+    ``log_callback(iteration, train.steps, metrics)`` with host copies of
+    the update count and that iteration's metrics (lane arrays with
+    lanes), ``iteration`` 0-based and global across evaluation blocks,
+    once the copy has landed and at the latest before the program
+    returns.  The tap is a pure observer (`_Tap`): the run is bitwise the
+    run without it, and the host never waits on the device for it.
     """
     if num_iterations < 1:
         raise ValueError(f"num_iterations must be >= 1, got {num_iterations}")
@@ -351,13 +404,16 @@ def make_anakin(
         S = lanes.count(generator)
         st = init_system_state(system, generator, num_envs, train_env=tenv)
         per_iter, updates, evals = [], [], []
+        tap = _Tap(log_every, log_callback)
         for it in range(num_iterations):
             st, metrics, upd = _one_iteration(system, tenv, st)
             per_iter.append(metrics)
+            tap(it, st.train.steps, metrics)
             if upd is not None:
                 updates.append({k: v for k, v in upd.items() if isinstance(v, torch.Tensor)})
             if eval_fn is not None and (it + 1) % eval_every == 0:
                 evals.append(eval_fn(st.train, _eval_seed(generator)))
+        tap.drain()
         # per-iteration scalars (or (S,) lane vectors) stacked along a last axis
         out = {k: torch.stack([m[k] for m in per_iter], -1) for k in per_iter[0]}
         lead = () if S is None else (S,)
@@ -384,18 +440,22 @@ def train_anakin(
     eval_num_envs=None,
     num_seeds=None,
     device=None,
+    log_every: int = 0,
+    log_callback=None,
 ):
     """Train for ``num_iterations`` vectorised steps of ``num_envs`` env copies.
 
     Returns ``(final SystemState, metrics)``, or ``(state, metrics, evals)``
     with ``eval_every > 0``; every leaf gains a leading ``(num_seeds,)``
     axis with ``num_seeds`` (see `make_anakin`).  ``device`` defaults to
-    CUDA and raises when none is present.
+    CUDA and raises when none is present.  ``log_every`` /
+    ``log_callback`` install the telemetry tap (see `make_anakin`); each
+    emission has reached the callback by the time this returns.
     """
     return make_anakin(
         system, num_iterations, num_envs, eval_every=eval_every,
         eval_episodes=eval_episodes, eval_num_envs=eval_num_envs,
-        num_seeds=num_seeds, device=device,
+        num_seeds=num_seeds, device=device, log_every=log_every, log_callback=log_callback,
     )(seed)
 
 
@@ -403,7 +463,8 @@ def train_anakin(
 
 
 def run_executor(system: System, seed: int, rank: int, num_iterations: int, num_envs: int,
-                 eval_episodes: int = 0, eval_num_envs=None, device=None) -> dict:
+                 eval_episodes: int = 0, eval_num_envs=None, device=None, log_every: int = 0,
+                 log_callback=None) -> dict:
     """One rank of the sharded runner, inside a world that has ``"data"`` bound.
 
     Rank ``rank`` runs anakin from seed ``seed + rank`` (the seed lane
@@ -417,11 +478,14 @@ def run_executor(system: System, seed: int, rank: int, num_iterations: int, num_
     ``eval_return`` (each rank's mean greedy return of ``eval_episodes``
     episodes under its own final params, ``(world,)``; the seed is one
     draw from the rank's generator, as anakin's interleaved evals take).
+    ``log_every`` / ``log_callback`` install anakin's telemetry tap on
+    this rank's loop.
     """
     from repro_torch.distributed import collective
 
     device = resolve_device(device)
-    program = make_anakin(system, num_iterations, num_envs, device=device)
+    program = make_anakin(system, num_iterations, num_envs, device=device, log_every=log_every,
+                          log_callback=log_callback)
     sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
     sync()
     t0 = time.perf_counter()
@@ -447,19 +511,26 @@ def run_executor(system: System, seed: int, rank: int, num_iterations: int, num_
     return out
 
 
+def _put(queue, iteration, updates, metrics):
+    """A rank's tap: send the emission (host values) to the parent's callback."""
+    queue.put((iteration, updates, metrics))
+
+
 def _executor(rank, world_size, device, system_fn, seed, num_iterations, num_envs,
-              eval_episodes, eval_num_envs):
+              eval_episodes, eval_num_envs, log_every, queue=None):
     """A spawned rank of `make_distributed`'s world: what the program returns."""
     del world_size
+    tap = None if queue is None else functools.partial(_put, queue)
     out = run_executor(system_fn(), seed, rank, num_iterations, num_envs, eval_episodes,
-                       eval_num_envs, device)
+                       eval_num_envs, device, log_every=log_every, log_callback=tap)
     result = (out["params"], out["metrics"])
     return result + ((out["eval_return"],) if eval_episodes > 0 else ())
 
 
 def make_distributed(system_fn: Callable[[], System], num_iterations: int,
                      num_envs_per_device: int, num_executors: int, *, backend: str, device,
-                     eval_episodes: int = 0, eval_num_envs=None, timeout_s: float = 900.0):
+                     eval_episodes: int = 0, eval_num_envs=None, timeout_s: float = 900.0,
+                     log_every: int = 0, log_callback=None):
     """Build the sharded program, a function of ``seed``, on ``torch.distributed``.
 
     ``system_fn`` builds the `System` with ``distributed_axis="data"``; it
@@ -476,17 +547,25 @@ def make_distributed(system_fn: Callable[[], System], num_iterations: int,
     ``eval_episodes > 0``: the params are rank 0's final ones (every rank
     returns the same), each metric and the eval return are ``(world,)``,
     one per rank.
+
+    ``log_every`` / ``log_callback`` install anakin's telemetry tap on
+    every rank: each rank's emissions travel to this process, where
+    ``log_callback(iteration, updates, metrics)`` sees every executor's
+    own metrics, as the reference's tap sees each device shard's.  All of
+    them have reached the callback by the time the program returns.
     """
     from repro_torch.distributed import collective
 
     collective.rank_devices(device, num_executors)  # raise before anything is spawned
+    tapping = log_every > 0 and log_callback is not None
 
     def program(seed):
         results = collective.run_world(
             _executor, num_executors, backend, device,
             args=(system_fn, seed, num_iterations, num_envs_per_device, eval_episodes,
-                  eval_num_envs),
+                  eval_num_envs, log_every if tapping else 0),
             timeout_s=timeout_s,
+            on_message=(lambda msg: log_callback(*msg)) if tapping else None,
         )
         return results[0]
 
@@ -495,7 +574,8 @@ def make_distributed(system_fn: Callable[[], System], num_iterations: int,
 
 def train_distributed(system_fn: Callable[[], System], seed: int, num_iterations: int,
                       num_envs_per_device: int, num_executors: int, *, backend: str, device,
-                      eval_episodes: int = 0, eval_num_envs=None, timeout_s: float = 900.0):
+                      eval_episodes: int = 0, eval_num_envs=None, timeout_s: float = 900.0,
+                      log_every: int = 0, log_callback=None):
     """Train ``num_executors`` ranks in step: the paper's ``num_executors`` scaling.
 
     One `make_distributed` run; see there for the arguments and the
@@ -507,5 +587,5 @@ def train_distributed(system_fn: Callable[[], System], seed: int, num_iterations
     return make_distributed(
         system_fn, num_iterations, num_envs_per_device, num_executors, backend=backend,
         device=device, eval_episodes=eval_episodes, eval_num_envs=eval_num_envs,
-        timeout_s=timeout_s,
+        timeout_s=timeout_s, log_every=log_every, log_callback=log_callback,
     )(seed)

@@ -23,6 +23,7 @@ import contextlib
 import datetime
 import multiprocessing as mp
 import os
+import queue
 import tempfile
 import time
 import traceback
@@ -146,23 +147,42 @@ def rank_devices(device, world_size: int) -> list:
     return [f"cuda:{r}" for r in range(world_size)]
 
 
-def run_world(fn, world_size: int, backend: str, devices, args=(), timeout_s: float = 900.0):
+def _drain(messages, on_message) -> None:
+    """Hand every message the ranks have queued so far to ``on_message``."""
+    while True:
+        try:
+            msg = messages.get_nowait()
+        except queue.Empty:
+            return
+        on_message(msg)
+
+
+def run_world(fn, world_size: int, backend: str, devices, args=(), timeout_s: float = 900.0,
+              on_message=None):
     """Run ``fn(rank, world_size, device, *args)`` on ``world_size`` spawned ranks.
 
     ``fn`` and ``args`` must pickle (``fn`` by its import path).  Returns
     the list of every rank's result, each on the device it was made on.
     A rank that fails, or a world that outlasts ``timeout_s``, stops every
     rank and raises with the failing rank's traceback.
+
+    With ``on_message``, ``fn`` gets one more argument, a queue: every
+    object a rank puts on it reaches ``on_message(obj)`` in this process
+    while the world runs (polled every 0.1 s), and all of them before this
+    returns.
     """
     devices = rank_devices(devices, world_size)
     if backend == "nccl" and (len(set(devices)) < world_size
                               or any(not d.startswith("cuda") for d in devices)):
         raise ValueError(f"nccl needs one CUDA device a rank; got {devices}")
     ctx = mp.get_context("spawn")
+    messages = None if on_message is None else ctx.Queue()
+    args = tuple(args) + (() if messages is None else (messages,))
+    poll = 0.1 if messages is not None else None
     with tempfile.TemporaryDirectory() as tmp:
         init_method = "file://" + os.path.join(tmp, "store")
         procs = [ctx.Process(target=_worker, args=(fn, rank, world_size, backend, devices[rank],
-                                                   init_method, tmp, timeout_s, tuple(args)))
+                                                   init_method, tmp, timeout_s, args))
                  for rank in range(world_size)]
         for p in procs:
             p.start()
@@ -170,7 +190,10 @@ def run_world(fn, world_size: int, backend: str, devices, args=(), timeout_s: fl
             deadline = time.monotonic() + timeout_s
             alive = list(procs)
             while alive:
-                wait([p.sentinel for p in alive], timeout=max(deadline - time.monotonic(), 0))
+                left = max(deadline - time.monotonic(), 0)
+                wait([p.sentinel for p in alive], timeout=left if poll is None else min(left, poll))
+                if messages is not None:  # a rank cannot exit while its queue's pipe is full
+                    _drain(messages, on_message)
                 alive = [p for p in procs if p.is_alive()]
                 failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
                 if failed:
@@ -185,6 +208,9 @@ def run_world(fn, world_size: int, backend: str, devices, args=(), timeout_s: fl
                 if p.is_alive():
                     p.kill()
                     p.join()
+        if messages is not None:
+            _drain(messages, on_message)
+            messages.close()
         return [torch.load(os.path.join(tmp, f"result_{r}.pt"), weights_only=False)
                 for r in range(world_size)]
 

@@ -59,6 +59,7 @@ from repro_torch.core.system import (
     System,
     _act_phase,
     _do_updates,
+    _Tap,
     _training_env,
     seed_generators,
 )
@@ -139,10 +140,12 @@ class AsyncProgram:
     """
 
     def __init__(self, system: System, num_envs: int, num_actors: int, param_sync_every: int,
-                 unroll_len: int, num_ticks: int, queue_capacity: int, pops: int, device):
+                 unroll_len: int, num_ticks: int, queue_capacity: int, pops: int, device,
+                 log_every: int = 0, log_callback=None):
         self.system, self.num_envs, self.num_actors = system, num_envs, num_actors
         self.param_sync_every, self.unroll_len, self.num_ticks = param_sync_every, unroll_len, num_ticks
         self.queue_capacity, self.pops, self.device = queue_capacity, pops, device
+        self.log_every, self.log_callback = log_every, log_callback
         self.tenv = _training_env(system.env)
 
     def init_state(self, seed: int) -> AsyncState:
@@ -262,12 +265,18 @@ class AsyncProgram:
         ``queue_depth`` (after the pushes), ``staleness`` (the mean of the
         chunks consumed that tick), ``consumed`` and the cumulative
         ``dropped`` to a float32 ``(num_ticks,)`` tensor on the run's device.
+        The telemetry tap (`repro_torch.core.system._Tap`) emits every
+        ``log_every`` ticks the learner's update count and the tick's
+        metrics, all of them before this returns.
         """
         state = self.init_state(seed)
         per_tick = []
-        for _ in range(self.num_ticks):
+        tap = _Tap(self.log_every, self.log_callback)
+        for t in range(self.num_ticks):
             state, m = self.tick(state)
             per_tick.append(m)
+            tap(t, state.train.steps, m)
+        tap.drain()
         metrics = {}
         for k in per_tick[0]:
             vals = [m[k] for m in per_tick]
@@ -279,7 +288,8 @@ class AsyncProgram:
 def make_async(system: System, num_iterations: int, num_envs: int, num_actors: int,
                param_sync_every: int = 1, unroll_len: Optional[int] = None,
                queue_capacity: Optional[int] = None,
-               learner_pops_per_tick: Optional[int] = None, device=None) -> AsyncProgram:
+               learner_pops_per_tick: Optional[int] = None, device=None, log_every: int = 0,
+               log_callback=None) -> AsyncProgram:
     """Build the async actor/learner program, a function of ``seed``.
 
     ``num_iterations`` counts env steps of each env of each actor
@@ -289,7 +299,9 @@ def make_async(system: System, num_iterations: int, num_envs: int, num_actors: i
     holds ``queue_capacity`` chunks (default ``2 * num_actors``) and the
     learner pops up to ``learner_pops_per_tick`` a tick (default
     ``num_actors``: it keeps up exactly).  ``device`` defaults to CUDA and
-    raises when there is none.
+    raises when there is none.  ``log_every`` / ``log_callback`` install
+    the telemetry tap, which counts learner ticks (the reference's scan
+    unit), as anakin's counts iterations.
     """
     if num_actors < 1:
         raise ValueError(f"num_actors must be >= 1, got {num_actors}")
@@ -303,15 +315,17 @@ def make_async(system: System, num_iterations: int, num_envs: int, num_actors: i
         )
     return AsyncProgram(system, num_envs, num_actors, param_sync_every, unroll,
                         num_iterations // unroll, queue_capacity or 2 * num_actors,
-                        learner_pops_per_tick or num_actors, resolve_device(device))
+                        learner_pops_per_tick or num_actors, resolve_device(device),
+                        log_every=log_every, log_callback=log_callback)
 
 
 def train_async(system: System, seed: int, num_iterations: int, num_envs: int,
                 num_actors: int, param_sync_every: int = 1, unroll_len: Optional[int] = None,
                 queue_capacity: Optional[int] = None,
-                learner_pops_per_tick: Optional[int] = None, device=None):
+                learner_pops_per_tick: Optional[int] = None, device=None, log_every: int = 0,
+                log_callback=None):
     """One `make_async` run: ``(AsyncState, metrics)``; ``state.train`` is the learner's."""
     return make_async(system, num_iterations, num_envs, num_actors,
                       param_sync_every=param_sync_every, unroll_len=unroll_len,
                       queue_capacity=queue_capacity, learner_pops_per_tick=learner_pops_per_tick,
-                      device=device)(seed)
+                      device=device, log_every=log_every, log_callback=log_callback)(seed)

@@ -14,6 +14,7 @@ nothing and touches no GPU.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -22,6 +23,8 @@ import pathlib
 import re
 import shutil
 import subprocess
+import threading
+import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -30,6 +33,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel: see `ptxas_report`
 )
+# What this process compiled and loaded at run time: ``"builds"`` / ``"loads"``
+# counts and ``"build_seconds"`` (read by `repro_torch.obs.RetraceCounter`).
+BUILD_EVENTS: collections.Counter = collections.Counter()
+_EVENTS_LOCK = threading.Lock()  # chip_smoke builds the sources from several threads
 
 
 def _nvcc() -> str:
@@ -82,7 +89,11 @@ def build(source: str) -> pathlib.Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    with _EVENTS_LOCK:
+        BUILD_EVENTS["builds"] += 1
+        BUILD_EVENTS["build_seconds"] += time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {source}:\n{proc.stderr}"
@@ -116,4 +127,7 @@ def ptxas_report(library: pathlib.Path) -> list[dict]:
 @functools.cache
 def load_library(source: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source>``, once per process."""
-    return ctypes.CDLL(str(build(source)))
+    lib = ctypes.CDLL(str(build(source)))
+    with _EVENTS_LOCK:
+        BUILD_EVENTS["loads"] += 1
+    return lib

@@ -21,6 +21,7 @@ import functools
 import torch
 
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_vjp
+from repro_torch.roofline.op_cost import custom_op
 
 KERNEL_HEAD_DIMS = (32, 64, 80, 128)  # the head_dim the kernel is instantiated for
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
@@ -82,11 +83,29 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def _live_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps in one (b, h): key <= query if causal,
+    key > query - window if windowed."""
+    if causal:
+        if window and window < S:
+            return window * (window + 1) // 2 + (S - window) * window
+        return S * (S + 1) // 2
+    if window and window < S:
+        return S * S - (S - window) * (S - window + 1) // 2
+    return S * S
+
+
 def _forward(q, k, v, causal, window):
-    if q.is_cuda:
-        return _launch(q, k, v, causal, window)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
+    (B, Hq, S, hd), Hkv, e = q.shape, k.shape[1], q.element_size()
+    # q, k, v read once, the output written once; two products over the
+    # live (query, key) pairs
+    nbytes = e * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
+    flops = 4 * hd * _live_pairs(S, causal, window) * B * Hq
+    with custom_op("flash_attention", flops=flops, nbytes=nbytes):
+        if q.is_cuda:
+            return _launch(q, k, v, causal, window)
+        if q.device.type == "cpu":
+            return attention_ref(q, k, v, causal=causal, window=window)
     raise NotImplementedError(f"flash_attention has no kernel for {q.device}")
 
 

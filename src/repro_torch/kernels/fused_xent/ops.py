@@ -27,6 +27,7 @@ import functools
 import torch
 
 from repro_torch.kernels.fused_xent.ref import softmax_xent_ref
+from repro_torch.roofline.op_cost import custom_op
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # (pointer arguments, int arguments) of each C entry point; a stream follows
@@ -141,10 +142,14 @@ def _check(x, w, labels):
 def fused_softmax_xent(x, w, labels):
     """x: (T, d); w: (d, V); labels: (T,) int -> (T,) float32 per-token loss."""
     _check(x, w, labels)
-    if x.is_cuda:
-        return _launch(x, w, labels)
-    if x.device.type == "cpu":
-        return softmax_xent_ref(x, w, labels)
+    (T, d), V = x.shape, w.shape[1]
+    # x, w and the labels read once, the loss written once; 2 T d V for the product
+    nbytes = (T * d + d * V) * x.element_size() + T * labels.element_size() + T * 4
+    with custom_op("fused_xent", flops=2 * T * d * V, nbytes=nbytes):
+        if x.is_cuda:
+            return _launch(x, w, labels)
+        if x.device.type == "cpu":
+            return softmax_xent_ref(x, w, labels)
     raise NotImplementedError(f"fused_softmax_xent has no kernel for {x.device}")
 
 

@@ -25,6 +25,7 @@ import math
 import torch
 
 from repro_torch.kernels.recurrent_scan.ref import scan_ref
+from repro_torch.roofline.op_cost import custom_op
 
 KERNEL_CHUNK = 16  # steps a chunk in csrc/recurrent_scan.cu (kChunk, checked in _kernel)
 
@@ -101,12 +102,17 @@ def _scan(a, b, reset, h0, reverse=False):
         reset.reshape(T, -1) if reset is not None else None,
         h0.reshape(D) if h0 is not None else None,
     )
-    if a.is_cuda:
-        out = _launch(*flat, reverse)
-    elif a.device.type == "cpu":
-        out = scan_ref(*flat, reverse=reverse)
-    else:
-        raise NotImplementedError(f"recurrent_scan has no kernel for {a.device}")
+    # each input read once, the output written once (a, b, out float32; h0;
+    # the reset mask in bytes); one multiply-add an element and step
+    nbytes = (3 * T * D * 4 + (D * 4 if h0 is not None else 0)
+              + (flat[2].numel() if reset is not None else 0))
+    with custom_op("recurrent_scan", flops=2 * T * D, nbytes=nbytes):
+        if a.is_cuda:
+            out = _launch(*flat, reverse)
+        elif a.device.type == "cpu":
+            out = scan_ref(*flat, reverse=reverse)
+        else:
+            raise NotImplementedError(f"recurrent_scan has no kernel for {a.device}")
     return out.reshape(a.shape)
 
 

@@ -20,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.roofline.op_cost import custom_op
 
 KERNEL_STATE_SIZES = (4, 8, 16)  # the N the kernel is instantiated for
 _ENTRY = {torch.float32: "selective_scan_f32", torch.bfloat16: "selective_scan_bf16"}
@@ -92,10 +93,16 @@ def selective_scan(x, delta, A, B, C, D):
     and C are float32 or bfloat16 (one dtype); delta, A and D float32.
     """
     _check(x, delta, A, B, C, D)
-    if x.is_cuda:
-        return _launch(x, delta, A, B, C, D)
-    if x.device.type == "cpu":
-        return selective_scan_ref(x, delta, A, B, C, D)
+    (b, S, di), N, e = x.shape, A.shape[1], x.element_size()
+    # each input read once, each output written once: x, y and B, C in x's
+    # dtype, delta, A, D and h_final float32; per (b, t, d, n) delta*A, the
+    # h fma, dx*B and the y fma
+    nbytes = b * S * di * (2 * e + 4) + 2 * b * S * N * e + di * N * 4 + di * 4 + b * di * N * 4
+    with custom_op("selective_scan", flops=b * S * di * (6 * N + 3), nbytes=nbytes):
+        if x.is_cuda:
+            return _launch(x, delta, A, B, C, D)
+        if x.device.type == "cpu":
+            return selective_scan_ref(x, delta, A, B, C, D)
     raise NotImplementedError(f"selective_scan has no kernel for {x.device}")
 
 

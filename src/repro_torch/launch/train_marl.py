@@ -32,10 +32,34 @@ reward (and eval return), the async runner the queue's mean depth, the
 mean staleness of what the learner consumed, the dropped chunks, and the
 env steps a second in all and an actor.  It runs on CUDA unless
 ``--device`` says otherwise, and raises when there is no GPU and no
-``--device``.  The reference's ``--log-every``, ``--log-dir``,
-``--profile`` and ``--save-checkpoint`` flags are not ported yet.
-``--continuous`` forces the env's continuous-action mode; a
-continuous-control system (``maddpg``, ``mad4pg``) turns it on by itself.
+``--device``.  ``--continuous`` forces the env's continuous-action mode;
+a continuous-control system (``maddpg``, ``mad4pg``) turns it on by
+itself.
+
+Observability (`repro_torch.obs`), as the reference's:
+
+  --log-every N      stream the metrics of every N-th iteration (iteration,
+                     update count, live SPS, reward, episode return) while
+                     the run goes, on every runner but loop; a pure
+                     observer, the run is bitwise the same without it
+  --log-dir DIR      write a run record, ``run.json`` (config, the card's
+                     provenance, total/compile/steady timing, per-phase
+                     timing, final metrics) with the streamed rows as
+                     ``metrics.jsonl`` / ``metrics.csv``, under
+                     ``DIR/<run-id>/``
+  --run-id ID        the record's directory name (default: a generated id)
+  --profile          a `torch.profiler` trace (``trace.json``) and the
+                     op-cost summary of one anakin update cycle (the
+                     iterations from a fresh state through the first
+                     trainer update), in the record
+  --save-checkpoint  write the trained policy as a self-describing
+                     checkpoint directory (`repro_torch.serve.save_policy`;
+                     a ``seed_<s>/`` lane each with ``--num-seeds``) that
+                     ``repro_torch.launch.serve_marl`` restores
+
+  PYTHONPATH=src python -m repro_torch.launch.train_marl --system rec_ippo \
+      --env matrix_game --log-every 64 --log-dir results/port/runs --profile \
+      --save-checkpoint results/port/ckpt/rec_ippo
 """
 from __future__ import annotations
 
@@ -46,13 +70,33 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.system import make_anakin, make_distributed, run_environment_loop
-from repro_torch.core.types import TrainState
-from repro_torch.distributed.impala import train_async
+from repro_torch.core.system import (
+    _one_iteration,
+    _training_env,
+    init_system_state,
+    make_anakin,
+    make_distributed,
+    run_environment_loop,
+    seed_generators,
+)
+from repro_torch.distributed.impala import default_unroll_len, train_async
 from repro_torch.envs import REGISTRY as ENVS
 from repro_torch.eval import evaluate
+from repro_torch.obs import (
+    ConsoleSink,
+    CsvSink,
+    JsonlSink,
+    MetricTap,
+    MultiLogger,
+    RetraceCounter,
+    RunRecord,
+    SeedAggregator,
+    measure_phase_timing,
+    profile_trace,
+    roofline_summary,
+)
 from repro_torch.systems.registry import REGISTRY as SYSTEMS
-from repro_torch.systems.registry import make_pair
+from repro_torch.systems.registry import make_pair, parse_overrides
 
 
 def parse_args(argv=None):
@@ -83,6 +127,23 @@ def parse_args(argv=None):
                    help="anakin: run the greedy evaluator every N iterations (0 = once, "
                         "after training)")
     p.add_argument("--eval-episodes", type=int, default=32)
+    p.add_argument("--set", action="append", default=[], metavar="FIELD=VALUE",
+                   help="a config field of the system, e.g. recurrent_core=linear or "
+                        "rollout_len=32 (repeatable; recorded in --save-checkpoint's metadata)")
+    p.add_argument("--log-every", type=int, default=0,
+                   help="stream the metrics of every N-th iteration (0 = off); a pure "
+                        "observer: the run is bitwise the same with it on or off")
+    p.add_argument("--log-dir", default=None,
+                   help="write a run record (run.json + metrics.jsonl/csv) under "
+                        "<log-dir>/<run-id>/; see docs/PORT_OBSERVABILITY.md")
+    p.add_argument("--run-id", default=None,
+                   help="run-record directory name (default: a generated sortable id)")
+    p.add_argument("--profile", action="store_true",
+                   help="a torch.profiler trace and the op-cost summary of one anakin update "
+                        "cycle, in the run record (needs --log-dir)")
+    p.add_argument("--save-checkpoint", default=None, metavar="DIR",
+                   help="write the trained policy as a self-describing checkpoint directory "
+                        "(per-seed lanes with --num-seeds) that repro_torch.serve restores")
     p.add_argument("--device", default=None, help="default: CUDA, raising without it")
     return p.parse_args(argv)
 
@@ -92,19 +153,111 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _build_system(system_name, env_name, env_kwargs):
+def _build_system(system_name, env_name, env_kwargs, overrides=None):
     """A sharded rank's system: gradients averaged over the ``"data"`` axis."""
-    return make_pair(system_name, env_name, distributed_axis="data", env_kwargs=env_kwargs)[1]
+    return make_pair(system_name, env_name, distributed_axis="data", env_kwargs=env_kwargs,
+                     **(overrides or {}))[1]
+
+
+def _update_cycle(system, seed, num_envs, num_seeds, max_iterations, device) -> int:
+    """Anakin from a fresh state through its first trainer update: the profiled unit.
+
+    Returns how many iterations that took (at most ``max_iterations``).
+    """
+    generator = (torch.Generator(device).manual_seed(seed) if num_seeds is None
+                 else seed_generators(seed, num_seeds, device))
+    tenv = _training_env(system.env)
+    st = init_system_state(system, generator, num_envs, train_env=tenv)
+    for it in range(max_iterations):
+        st, _, upd = _one_iteration(system, tenv, st)
+        if upd is not None:
+            break
+    return it + 1
+
+
+def _profile(args, system, num_seeds, device, root) -> dict:
+    """``--profile``: one update cycle under `torch.profiler`, and one under the op counter.
+
+    The cycle (anakin from a fresh state through its first trainer update,
+    `_update_cycle`) is the unit, not the whole run: a trace of every op
+    of a long run is too large to write.
+    """
+    cycle = lambda: _update_cycle(system, args.seed, args.num_envs, num_seeds,
+                                  args.iterations, device)
+    with profile_trace(f"{root}/trace") as info:
+        iterations = cycle()
+    info["roofline"] = {**roofline_summary(cycle), "iterations": iterations}
+    return info
+
+
+def _open_record(args, device, console):
+    """The run record and the logger the tap writes through (the console alone without one)."""
+    if not args.log_dir:
+        return None, console
+    record = RunRecord(args.log_dir, run_id=args.run_id, config=vars(args),
+                       tag=f"{args.system}-{args.env}", device=device)
+    console.line(f"run record: {record.dir}")
+    logger = MultiLogger(console, JsonlSink(record.metrics_path("jsonl")),
+                         CsvSink(record.metrics_path("csv")))
+    return record, logger
 
 
 def run(args) -> dict:
     """Launch one training run as configured; returns what it printed."""
     device = resolve_device(args.device)
     env_kwargs = {"continuous": True} if args.continuous else None
-    env, system = make_pair(args.system, args.env, env_kwargs=env_kwargs)
+    overrides = parse_overrides(args.set)
+    env, system = make_pair(args.system, args.env, env_kwargs=env_kwargs, **overrides)
     num_seeds = args.num_seeds if args.num_seeds > 0 else None
     if num_seeds is not None and args.runner != "anakin":
         raise ValueError("--num-seeds is an anakin option")
+    if args.profile and not args.log_dir:
+        raise ValueError("--profile writes into the run record: give --log-dir too")
+    console = ConsoleSink()
+    record, logger = _open_record(args, device, console)
+    try:
+        with RetraceCounter() as rc:
+            out, train, wall, tap = _train(args, system, env_kwargs, overrides, num_seeds,
+                                           device, logger, console)
+        if args.save_checkpoint:
+            from repro_torch.serve.checkpoint import save_policy
+
+            meta_path = save_policy(args.save_checkpoint, args.system, args.env, train,
+                                    config_overrides=overrides, env_kwargs=env_kwargs,
+                                    num_seeds=num_seeds, step=args.iterations)
+            console.line(f"wrote policy checkpoint: {meta_path}")
+            out["checkpoint"] = args.save_checkpoint
+        if tap is not None:
+            console.line(f"streamed {tap.emits} in-flight telemetry rows")
+            out["telemetry_rows"] = tap.emits
+        if record is not None:
+            retrace = rc.summary()
+            record.update("retrace", **retrace)
+            record.update("timing", total_seconds=wall, compile_seconds=retrace["compile_seconds"],
+                          steady_seconds=max(wall - retrace["compile_seconds"], 0.0))
+            record.update("timing", phases=measure_phase_timing(
+                system, args.num_envs, args.seed,
+                eval_episodes=args.eval_episodes if args.eval_every > 0 else 0, device=device))
+            record.update("metrics", **out)
+            if args.profile:
+                record.update("profile", **_profile(args, system, num_seeds, device, record.dir))
+            out["run_record"] = str(record.save())
+            console.line(f"wrote run record: {out['run_record']}")
+    finally:
+        logger.close()
+    return out
+
+
+def _train(args, system, env_kwargs, overrides, num_seeds, device, logger, console):
+    """The training run itself: ``(printed metrics, final train state, wall, tap)``."""
+    tap = None
+    if args.log_every > 0 and args.runner != "loop":
+        # the async runner's unit is a learner tick (an unroll of every env
+        # of every actor), the others' one step of every env copy
+        steps = (default_unroll_len(system) * args.num_envs * args.num_actors
+                 if args.runner == "async" else args.num_envs * (num_seeds or 1))
+        tap = MetricTap(SeedAggregator(logger) if num_seeds else logger, args.log_every,
+                        steps_per_iteration=steps)
     if args.runner == "loop":
         if args.eval_every:
             raise ValueError("--eval-every is an anakin and sharded option")
@@ -125,16 +278,20 @@ def run(args) -> dict:
         backend = "gloo" if device.type == "cpu" else "nccl"
         eval_episodes = args.eval_episodes if args.eval_every > 0 else 0
         program = make_distributed(
-            functools.partial(_build_system, args.system, args.env, env_kwargs),
+            functools.partial(_build_system, args.system, args.env, env_kwargs, overrides),
             args.iterations, args.num_envs, args.num_executors, backend=backend,
-            device=device.type, eval_episodes=eval_episodes,
+            device=device.type, eval_episodes=eval_episodes, log_every=args.log_every,
+            log_callback=tap,
         )
         _sync(device)
+        if tap is not None:
+            tap.reset_clock()
         t0 = time.perf_counter()
         result = program(args.seed)  # the wall includes starting the ranks
         wall = time.perf_counter() - t0
-        params, metrics = result[0], result[1]
-        train = TrainState(params, params, (), 0)
+        # the sharded runner returns bare params: they save as a params-only
+        # checkpoint (servable, not resumable), as the reference's do
+        train, metrics = result[0], result[1]
         out = {"per_executor_reward": metrics["reward"].tolist(),
                "env_steps": args.iterations * args.num_envs * args.num_executors}
         if eval_episodes:
@@ -144,11 +301,18 @@ def run(args) -> dict:
     elif args.runner == "async":
         if args.eval_every:
             raise ValueError("--eval-every is an anakin and sharded option")
+        # the flag counts iterations, as for every runner; the async tap
+        # counts learner ticks: at least one emission a run
+        log_every_ticks = (max(1, args.log_every // default_unroll_len(system))
+                           if args.log_every > 0 else 0)
         _sync(device)
+        if tap is not None:
+            tap.reset_clock()
         t0 = time.perf_counter()
         state, metrics = train_async(system, args.seed, args.iterations, args.num_envs,
                                      args.num_actors, param_sync_every=args.param_sync_every,
-                                     device=device)
+                                     device=device, log_every=log_every_ticks,
+                                     log_callback=tap)
         _sync(device)
         wall = time.perf_counter() - t0
         train = state.train
@@ -171,8 +335,11 @@ def run(args) -> dict:
         program = make_anakin(
             system, args.iterations, args.num_envs, eval_every=args.eval_every,
             eval_episodes=args.eval_episodes, num_seeds=num_seeds, device=device,
+            log_every=args.log_every, log_callback=tap,
         )
         _sync(device)
+        if tap is not None:
+            tap.reset_clock()
         t0 = time.perf_counter()
         result = program(args.seed)
         _sync(device)
@@ -187,8 +354,8 @@ def run(args) -> dict:
         }
         if args.eval_every > 0:
             ev_returns = result[2].episode_return.mean(-1)  # ([S,] num_evals)
-            print("greedy eval return (team), per eval point: "
-                  f"{[round(float(x), 3) for x in ev_returns.flatten()]}")
+            console.line("greedy eval return (team), per eval point: "
+                         f"{[round(float(x), 3) for x in ev_returns.flatten()]}")
             out["eval_return"] = float(ev_returns[..., -1].mean())
     if "eval_return" not in out:
         seeds = None if num_seeds is None else list(range(args.seed, args.seed + num_seeds))
@@ -197,11 +364,11 @@ def run(args) -> dict:
                       num_seeds=num_seeds, device=device)
         out["eval_return"] = float(ev.episode_return.mean())
     out.update(wall_s=wall, env_steps_per_s=out["env_steps"] / wall)
-    print({k: v for k, v in out.items() if k not in ("wall_s", "env_steps_per_s")})
-    print(f"final greedy eval return (team): {out['eval_return']:.3f}")
-    print(f"wall time: {wall:.2f}s, {out['env_steps_per_s']:.0f} env steps/s "
-          f"({args.system} on {args.env}, runner={args.runner}, device={device})")
-    return out
+    console.line(str({k: v for k, v in out.items() if k not in ("wall_s", "env_steps_per_s")}))
+    console.line(f"final greedy eval return (team): {out['eval_return']:.3f}")
+    console.line(f"wall time: {wall:.2f}s, {out['env_steps_per_s']:.0f} env steps/s "
+                 f"({args.system} on {args.env}, runner={args.runner}, device={device})")
+    return out, train, wall, tap
 
 
 def main(argv=None):

@@ -14,6 +14,7 @@ building anything.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 import inspect
 from typing import Any, Callable, Dict, Optional
@@ -105,6 +106,36 @@ REGISTRY: Dict[str, SystemEntry] = {
         description="RIAL baseline (Q-learned discrete channel)",
     ),
 }
+
+
+# The smoke operating point of `repro.bench.throughput` (copied: the port
+# imports nothing of the JAX package), keyed by config class so a family
+# shares it; the serving launcher trains its checkpoints there.
+SMOKE_OVERRIDES = {
+    OffPolicyConfig: dict(hidden_sizes=(32, 32), batch_size=32, buffer_capacity=5_000),
+    PPOConfig: dict(hidden_sizes=(32, 32), rollout_len=32, epochs=1, num_minibatches=2),
+}
+
+
+def smoke_overrides(system_name: str) -> dict:
+    """The smoke-scale config overrides of a registered system (may be {})."""
+    return dict(SMOKE_OVERRIDES.get(REGISTRY[system_name].config_cls, {}))
+
+
+def parse_overrides(items) -> dict:
+    """``["field=value", ...]`` (the launchers' ``--set``) -> config-field overrides.
+
+    Each value is read as a Python literal (``False``, ``(64, 64)``, ``3e-4``);
+    a bare word (``gru``) stays a string.
+    """
+    overrides = {}
+    for item in items:
+        field, _, value = item.partition("=")
+        try:
+            overrides[field] = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            overrides[field] = value
+    return overrides
 
 
 # ----------------------------------------------------- spec-driven checks

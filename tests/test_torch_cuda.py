@@ -36,7 +36,11 @@ prisoner, robot_warehouse's re-requests).  A linear-core rec-MADQN update
 and a fused no-channel DIAL update launch the recurrent-scan kernel as
 often as their unrolls say.  The async actor/learner runner's ticks of
 ippo and vdn (2 actors, a stale snapshot, the queue's pushes and pops, the
-learner's updates) never wait on the card either.
+learner's updates) never wait on the card either.  The serving engine's
+tick (ippo, rec_ippo with the linear core, vdn; admissions included)
+waits on the card once, for its one packed copy of the decisions, and the
+runners' telemetry tap never waits on it (its copies land behind the
+queued work and are delivered later).
 """
 import pytest
 
@@ -464,3 +468,69 @@ def test_smoke_train_step_goes_through_both_kernels(cuda):
     assert fused_softmax_xent.launches == 1
     assert fused_softmax_xent.combine_launches == int(cfg.dtype == "bfloat16")
     assert bool(torch.isfinite(metrics["loss"]))
+
+
+def _sync_warnings(fn):
+    """``fn()`` under ``set_sync_debug_mode("warn")``: where it waited on the card (file:line)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,overrides", [
+    ("ippo", {}), ("rec_ippo", {"recurrent_core": "linear"}), ("vdn", {}),
+])
+def test_engine_tick_copies_to_the_host_once(cuda, name, overrides):
+    from repro_torch.serve import DecisionEngine, ServeRequest
+    from repro_torch.systems.registry import make_pair, smoke_overrides
+
+    _, system = make_pair(name, "matrix_game", **smoke_overrides(name), **overrides)
+    train = system.init_train(torch.Generator(cuda).manual_seed(0))
+    engine = DecisionEngine(system, train, max_slots=4, device=cuda)
+    for i in range(12):
+        engine.submit(ServeRequest(uid=i, seed=i))
+    # episodes of 10 steps: slots retire at ticks 10 and 20 and the queue
+    # refills them at 11 and 21; the first 12 ticks take the first-use costs
+    for _ in range(12):
+        engine.tick()
+    ticks = 12
+    waits = _sync_warnings(lambda: [engine.tick() for _ in range(ticks)])
+    assert len(waits) == ticks, waits  # one packed copy a tick, admissions included
+    assert len(engine.finished) == 8
+
+
+@pytest.mark.cuda
+def test_tap_never_waits_on_the_card(cuda):
+    from repro_torch.core.system import _one_iteration, _Tap, _training_env, init_system_state
+    from repro_torch.systems.registry import make_pair
+
+    _, system = make_pair("ippo", "matrix_game", hidden_sizes=(16, 16), rollout_len=4,
+                          epochs=1, num_minibatches=2)
+    tenv = _training_env(system.env)
+    st = init_system_state(system, torch.Generator(cuda).manual_seed(0), 4, tenv)
+    rows = []
+    tap = _Tap(4, lambda *r: rows.append(r))
+
+    def iterations(its):
+        nonlocal st
+        for it in its:
+            st, metrics, _ = _one_iteration(system, tenv, st)
+            tap(it, st.train.steps, metrics)
+
+    iterations([0, 1, 2, 3])  # warm: first-use costs, an update, one emission
+    tap.drain()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        iterations([4, 5, 6, 7, 8])  # a logging iteration (7) among them: no wait either
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    tap.drain()  # the run's end delivers what is still in flight
+    assert [r[0] for r in rows] == [3, 7] and int(rows[-1][1]) == 2
