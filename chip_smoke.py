@@ -202,6 +202,28 @@ its training runs, not on the served tick (a memory core's ``step``):
     results/port/: all 8 cells, maddpg x matrix_game with the registry's
     reason.
 
+Dense and MoE serving (Granite-8B, OLMoE-1B-7B, Minitron-8B), the
+eleventh slice; flash_attention lies on every prefill and every engine
+admission (its new shapes join 11's parity: Granite's 32/8 heads at S =
+16, 37, 64 and 2048, OLMoE's 16/16 at 50):
+
+35. launcher: Granite-8B and OLMoE-1B-7B at their published configs (36
+    and 16 layers, bf16, random weights from a seed), batch 4 x prompt
+    2048, 32 tokens; Minitron-8B (its 256k vocab) at batch 1 x 512, 8
+    tokens: prefill and decode walls beside their bounds, tok/s, peak
+    memory, flash_attention launched once a layer by the prefill and never
+    by decode; OLMoE's routed assignments dropped over capacity at prefill
+    and at decode (a recorded run, untimed);
+36. engine: Granite-8B behind the continuous-batching engine, 4 slots, 8
+    requests of 16-64 prompt tokens x 16 new tokens, one flash launch a
+    layer an admission;
+37. slice parity: Granite-8B's full width cut to 2 layers in float32, the
+    same weights on the card and the CPU: prefill logits and the KV cache
+    at 1e-4, then 4 decode steps on equal tokens; the engine on the card
+    equals sequential generation;
+38. kernel timing: flash_attention at Granite's prefill shape (4, 32/8,
+    2048, 128) bf16 causal, beside SDPA and its bound.
+
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -271,8 +293,18 @@ FLASH_CASES = [
     (1, 4, 2, 200, 128, False, 0, torch.bfloat16),
     (1, 2, 1, 300, 128, True, 70, torch.bfloat16),
     (1, 2, 2, 384, 64, True, 200, torch.bfloat16),
+    # the attention serving path: Granite's 32/8 heads (n_rep 4) at the engine's short
+    # prompts (under one 128-row query tile) and the launcher's 2048, OLMoE's 16/16;
+    # then every launcher prefill as it runs: Granite's and OLMoE's at batch 4 x 2048,
+    # Minitron's at 1 x 512
+    *[(1, 32, 8, S, 128, True, 0, torch.bfloat16) for S in (16, 37, 64, 2048)],
+    (1, 16, 16, 50, 128, True, 0, torch.bfloat16),
+    (4, 32, 8, 2048, 128, True, 0, torch.bfloat16),
+    (4, 16, 16, 2048, 128, True, 0, torch.bfloat16),
+    (1, 32, 8, 512, 128, True, 0, torch.bfloat16),
 ]
 FLASH_PATH = (4, 16, 8, 4096, 128)  # InternLM2-1.8B at batch 4 x 4096
+FLASH_SERVE_PATH = (4, 32, 8, 2048, 128)  # Granite-8B's prefill at batch 4 x 2048
 # (T, d, V): tests/test_kernels.py:93-98, then the bf16 design's edges
 XENT_CASES = [(64, 128, 1000), (100, 64, 512), (128, 32, 2048), (32, 16, 77),
               (129, 64, 255), (129, 128, 257), (64, 40, 1001)]
@@ -345,6 +377,12 @@ SERVE_SLOTS, SERVE_STREAMS, SERVE_EPISODES, SERVE_RATE = (2, 8), 8, 4, 0.2
 WIDE_SLOTS, PARITY_TICKS, NEAR_TIE = 256, 64, 1e-5
 TAP_SEEDS, TAP_ENVS, TAP_ITERATIONS, TAP_EVERY = 8, 256, 64, 16
 SWEEP_SYSTEMS, SWEEP_ENVS = ("ippo", "vdn", "rec_ippo", "maddpg"), ("matrix_game", "spread")
+# slice 11, attention serving at the published configs, random weights from a seed:
+# (arch, batch, prompt, tokens) through the launcher; the engine at Granite-8B with 4
+# slots and 8 requests of 16-64 prompt tokens x 16; card vs CPU at Granite's full width
+# cut to 2 layers in float32
+ATTN_SERVE = [("granite-8b", 4, 2048, 32), ("olmoe-1b-7b", 4, 2048, 32), ("minitron-8b", 1, 512, 8)]
+ATTN_ENGINE_ARCH = "granite-8b"
 
 
 def _require(cond, msg):
@@ -2031,26 +2069,31 @@ def serve_engine(sops, model):
     }
 
 
-def lm_slice_parity():
-    """Full width, 2 layers, float32: the same weights on the card and the CPU."""
+def lm_slice_parity(arch=ARCH):
+    """Full width, 2 layers, float32: the same weights on the card and the CPU.
+
+    Prefill logits and every cache leaf, then 4 decode steps on equal
+    tokens, then the engine on the card against sequential generation.
+    """
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.serving import Request, ServingEngine
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
     cpu = M.init_model(torch.Generator().manual_seed(1), cfg)
     gpu = M.LM(tree_map(lambda t: t.to("cuda"), cpu.tree()), cfg)
     tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 40)))
-    lc, cc = M.prefill(cpu, tokens)
-    lg, cg = M.prefill(gpu, tokens.cuda())
+    lc, cc = M.prefill(cpu, tokens, max_len=44)
+    lg, cg = M.prefill(gpu, tokens.cuda(), max_len=44)
     out = {"prefill_logits": _err(lg.cpu(), lc)}
     _require(_within(lg.cpu(), lc, LM_TOL), f"prefill logits differ by {out['prefill_logits']}")
-    for name in ("conv", "ssm"):
-        out[name] = _err(cg[name].cpu(), cc[name])
-        _require(_within(cg[name].cpu(), cc[name], LM_TOL), f"{name} cache differs")
     _require(torch.equal(cg["pos"].cpu(), cc["pos"]), "pos differs")
+    out["cache"] = 0.0
+    for x, y in zip(tree_leaves(cg), tree_leaves(cc)):
+        out["cache"] = max(out["cache"], _err(x.cpu(), y))
+        _require(_within(x.cpu(), y, LM_TOL), f"a cache leaf differs by {_err(x.cpu(), y)}")
 
     # 4 greedy steps, both fed the CPU's tokens
     tok = lc.argmax(-1)
@@ -2063,12 +2106,16 @@ def lm_slice_parity():
         for i in torch.nonzero(want != got)[:, 0].tolist():
             top2 = lc[i, 0].topk(2).values
             gap = float(top2[0] - top2[1])
-            print(f"slice parity: decode step {step} stream {i}: card token {int(got[i, 0])}, "
-                  f"CPU token {int(want[i, 0])}, CPU top-2 gap {gap:.3e}")
+            print(f"slice parity: {arch} decode step {step} stream {i}: card token "
+                  f"{int(got[i, 0])}, CPU token {int(want[i, 0])}, CPU top-2 gap {gap:.3e}")
             _require(gap < LM_TOL, f"decode step {step} stream {i}: tokens differ, gap {gap}")
             differing.append((step, i))
         tok = want
     out["decode_logits"] = worst
+    out["decode_cache"] = max(_err(x.cpu(), y) for x, y in zip(tree_leaves(cg), tree_leaves(cc)))
+    _require(out["decode_cache"] <= LM_TOL * (1 + max(float(y.abs().max())
+                                                       for y in tree_leaves(cc))),
+             f"the cache after decode differs by {out['decode_cache']}")
     out["differing_tokens"] = len(differing)
 
     # the engine on the card = sequential generation (tests/test_serving.py)
@@ -2136,11 +2183,11 @@ def _bound(nbytes, flops):
     return bounds, bound_by
 
 
-def flash_timing(fops, fref):
-    """Kernel, plain, SDPA and bound times at the training shape, bf16, causal."""
+def flash_timing(fops, fref, shape=FLASH_PATH):
+    """Kernel, plain, SDPA and bound times at ``shape`` (the training shape), bf16, causal."""
     import torch.nn.functional as F
 
-    B, Hq, Hkv, S, hd = FLASH_PATH
+    B, Hq, Hkv, S, hd = shape
     q, k, v = _attn_inputs(B, Hq, Hkv, S, hd, torch.bfloat16, seed=0)
     ms = _time_ms(lambda: fops._launch(q, k, v, True, 0), reps=10, inner=5)
     plain_ms = _time_ms(lambda: fref.attention_ref(q, k, v), reps=3, inner=1)
@@ -2275,6 +2322,230 @@ def dense_slice_parity():
         for i, (x, y) in enumerate(zip(xs, ys)):
             _require(_within(x, y, LM_TOL), f"{name} leaf {i} differs by {_err(x, y)}")
     return out
+
+
+class _RoutingRecorder:
+    """Wraps `moe.top_k_routing` to count routed, kept and expert-used assignments.
+
+    The counts stay on the card until `read`; a recorded run is not timed.
+    """
+
+    def __init__(self, moe_lib):
+        self.moe_lib, self.inner, self.counts = moe_lib, moe_lib.top_k_routing, []
+
+    def __enter__(self):
+        def recorded(logits, top_k, capacity):
+            out = self.inner(logits, top_k, capacity)
+            dispatch = out[0]  # (G, g, E, C)
+            self.counts.append((logits.shape[0] * logits.shape[1] * top_k, dispatch.sum(),
+                                dispatch.any(dim=3).any(dim=1).sum(), logits.shape[0]))
+            return out
+
+        self.moe_lib.top_k_routing = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_lib.top_k_routing = self.inner
+
+    def read(self):
+        """(routed, kept, experts used a group on average, each call's dropped share).
+
+        The counts are cleared.
+        """
+        routed = sum(c[0] for c in self.counts)
+        kept = [int(c[1]) for c in self.counts]
+        groups = sum(c[3] for c in self.counts)
+        used = sum(int(c[2]) for c in self.counts) / max(groups, 1)
+        dropped = [round(1 - k / c[0], 4) for k, c in zip(kept, self.counts)]
+        self.counts = []
+        return routed, sum(kept), used, dropped
+
+
+def _serve_bounds(cfg, B, S, gen, experts_used=None):
+    """Least prefill and decode-step times (ms) on this card for the launcher's work.
+
+    Prefill: the layers' products over B * S tokens (an MoE layer's top_k
+    experts a token and its router) plus attention over the causal pairs,
+    and the last position's unembedding, at 989 TFLOP/s; or the weights
+    read once and the KV cache written once, at 3.35 TB/s.  A decode step
+    at the run's mean position: the weights it needs read once (an MoE
+    layer's attention, router and ``experts_used`` of its experts, as this
+    run's routing kept them), the KV cache read up to each stream's
+    position, the unembedding; or the same products for B tokens.
+    """
+    from repro_torch.kernels.flash_attention.ops import _live_pairs
+
+    d, L, V, hd = cfg.d_model, cfg.num_layers, cfg.vocab, cfg.head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    attn = d * hd * (nq + 2 * nkv) + nq * hd * d
+    if cfg.arch_type == "moe":
+        expert = 3 * d * cfg.moe_d_ff
+        active = attn + cfg.top_k * expert + d * cfg.num_experts
+        stored = attn + cfg.num_experts * expert + d * cfg.num_experts
+        read = attn + (experts_used or cfg.num_experts) * expert + d * cfg.num_experts
+    else:
+        active = stored = read = attn + 3 * d * cfg.d_ff
+    e = 2  # bf16
+    C = min(S + gen, cfg.attn_window) if cfg.attn_window else S + gen
+    kv_row = 2 * L * nkv * hd * e  # K and V of one position, every layer
+    pairs = _live_pairs(S, True, cfg.attn_window)
+    pre_flops = 2 * active * L * B * S + 4 * hd * pairs * B * nq * L + 2 * d * V * B
+    pre_bytes = (L * stored + d * V) * e + B * S * d * e + kv_row * B * C
+    p = S + (gen - 1) / 2  # the decode steps' mean position
+    ctx = min(p + 1, C)
+    dec_flops = 2 * B * (L * active + d * V) + 4 * hd * ctx * nq * L * B
+    dec_bytes = (L * read + d * V) * e + kv_row * B * ctx
+    bounds = {}
+    for name, flops, nbytes in (("prefill", pre_flops, pre_bytes), ("decode", dec_flops,
+                                                                      dec_bytes)):
+        b, by = _bound(nbytes, flops)
+        bounds[name] = {"ms": b[by], "by": by, "flops": flops, "bytes": nbytes}
+    return bounds
+
+
+def attn_serve_launcher(fops, arch, B, S, gen):
+    """The launcher's path at ``arch``'s published config: batch B, prompt S, ``gen`` tokens.
+
+    The prefill must launch flash_attention once a layer and decode never.
+    An MoE model's routing runs once more, recorded and untimed: the share
+    of its routed assignments dropped over capacity at prefill and decode.
+    """
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as moe_lib
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = M.init_model(torch.Generator("cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    _require(n_params == cfg.param_count() + cfg.d_model,
+             f"{n_params} params, config says {cfg.param_count()}")
+    prompts = serve.make_prompts(cfg, B, S, 0, "cuda")
+    warm = serve.generate(model, prompts, 2)  # first calls: cuBLAS, allocator
+    cold_prefill_s = warm.prefill_s
+    del warm
+    torch.cuda.reset_peak_memory_stats()
+    fops.flash_attention.launches = 0
+    run = serve.generate(model, prompts, gen)
+    launches = fops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    _require(launches == cfg.num_layers, f"{arch}: serving launched flash_attention {launches}x")
+    _require(run.tokens.shape == (B, gen), f"tokens {tuple(run.tokens.shape)}")
+    _require(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of range")
+    for name, logits in (("prefill", run.prefill_logits), ("decode", run.logits)):
+        _require(logits.shape == (B, 1, cfg.vocab), f"{name} logits {tuple(logits.shape)}")
+        _require(bool(torch.isfinite(logits.float()).all()), f"non-finite {name} logits")
+    steps = gen - 1
+    out = {
+        "arch": arch, "layers": cfg.num_layers, "batch": B, "prompt": S, "gen": gen,
+        "init_s": init_s, "params": n_params, "param_bytes": param_bytes,
+        "cold_prefill_ms": cold_prefill_s * 1e3, "prefill_ms": run.prefill_s * 1e3,
+        "decode_ms_per_step": run.decode_s / steps * 1e3,
+        "decode_tok_per_s": B * steps / run.decode_s, "peak_gb": peak / 1e9,
+        "launches": launches, "sample": run.tokens[0, :16].tolist(),
+    }
+    experts_used = None
+    if cfg.arch_type == "moe":
+        with _RoutingRecorder(moe_lib) as rec:
+            logits, cache = M.prefill(model, prompts, max_len=S + gen)
+            routed, kept, _, by_layer = rec.read()
+            tok = torch.argmax(logits, dim=-1)
+            for _ in range(steps):
+                logits, cache = M.decode_step(model, cache, tok)
+                tok = torch.argmax(logits, dim=-1)
+            d_routed, d_kept, experts_used, _ = rec.read()
+        out["dropped_prefill"] = 1 - kept / routed
+        out["dropped_prefill_by_layer"] = by_layer
+        out["dropped_decode"] = 1 - d_kept / d_routed
+        out["experts_used_decode"] = experts_used
+        out["experts"] = cfg.num_experts
+        del cache
+    out["bounds"] = _serve_bounds(cfg, B, S, gen, experts_used)
+    return model, out
+
+
+def attn_serve_engine(fops, model):
+    """The engine at the published config: 4 slots, 8 ragged requests, 16 tokens each."""
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = model.cfg
+    rng = np.random.default_rng(1)
+    lens = rng.integers(16, 65, size=8)
+    engine = ServingEngine(model, max_slots=4, prompt_capacity=64, max_new_tokens=16,
+                           device="cuda")
+    for i, n in enumerate(lens):
+        prompt = rng.integers(0, cfg.vocab, (int(n),)).astype(np.int32)
+        engine.submit(Request(uid=i, prompt=prompt, max_new_tokens=16))
+    torch.cuda.synchronize()
+    fops.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    finished = engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fops.flash_attention.launches
+    _require(sorted(r.uid for r in finished) == list(range(8)), "engine lost a request")
+    _require(all(len(r.output) == 16 for r in finished), "a request ended short")
+    _require(all(0 <= t < cfg.vocab for r in finished for t in r.output), "token out of range")
+    _require(launches == cfg.num_layers * 8, f"engine launched flash_attention {launches}x")
+    return {"wall_s": wall, "tok_per_s": 8 * 16 / wall, "launches": launches,
+            "prompt_lens": [int(n) for n in lens]}
+
+
+def attn_serve_phase(tag, fops, fref):
+    """Slice 11: dense and MoE serving at Granite-8B, OLMoE-1B-7B and Minitron-8B."""
+    t0 = time.perf_counter()
+    launched, engine = {}, None
+    for arch, B, S, gen in ATTN_SERVE:
+        model, r = attn_serve_launcher(fops, arch, B, S, gen)
+        launched[arch] = r
+        b = r["bounds"]
+        moe = (f"; routed assignments dropped over capacity: prefill {r['dropped_prefill']:.4f} "
+               f"(by layer {r['dropped_prefill_by_layer']}), decode {r['dropped_decode']:.4f} "
+               f"({r['experts_used_decode']:.1f} of {r['experts']} experts used a layer a decode "
+               f"step)"
+               if "dropped_prefill" in r else "")
+        print(
+            f"serve (launcher): {arch} {r['layers']} layers bf16, {r['params']} params "
+            f"({r['param_bytes'] / 1e9:.2f} GB), init {r['init_s']:.2f} s; batch {B} x prompt "
+            f"{S}: prefill {r['prefill_ms']:.1f} ms (cold {r['cold_prefill_ms']:.1f} ms; bound "
+            f"{b['prefill']['ms']:.2f} ms by {b['prefill']['by']}, "
+            f"{b['prefill']['ms'] / r['prefill_ms']:.3f} of it), decode {r['decode_ms_per_step']:.2f} ms/step (bound "
+            f"{b['decode']['ms']:.3f} ms by {b['decode']['by']}, "
+            f"{b['decode']['ms'] / r['decode_ms_per_step']:.3f} of it) = "
+            f"{r['decode_tok_per_s']:.1f} tok/s over {gen - 1} steps, peak {r['peak_gb']:.2f} GB; "
+            f"flash_attention launches {r['launches']}{moe}; stream 0 {r['sample']} {tag}"
+        )
+        if arch == ATTN_ENGINE_ARCH:
+            engine = attn_serve_engine(fops, model)
+            print(
+                f"serve (engine): {arch}, 4 slots, 8 requests (prompts {engine['prompt_lens']}) "
+                f"x 16 tokens in {engine['wall_s']:.2f} s = {engine['tok_per_s']:.1f} tok/s; "
+                f"flash_attention launches {engine['launches']} {tag}"
+            )
+        del model
+        torch.cuda.empty_cache()
+    lm = lm_slice_parity(ATTN_ENGINE_ARCH)
+    print(
+        f"slice parity: {ATTN_ENGINE_ARCH} full width, 2 layers, float32, card vs CPU: prefill "
+        f"logits {lm['prefill_logits']:.3e}, cache (K, V, pos) {lm['cache']:.3e} (tol {LM_TOL}); "
+        f"4 decode steps: logits {lm['decode_logits']:.3e}, cache {lm['decode_cache']:.3e}, "
+        f"{lm['differing_tokens']} differing tokens; engine = sequential on the card"
+    )
+    row = flash_timing(fops, fref, FLASH_SERVE_PATH)
+    print(
+        f"kernel timing: flash_attention {row['shape']} (Granite-8B's prefill): {row['ms']:.3f} ms "
+        f"({row['flops'] / row['ms'] / 1e9:.0f} TFLOP/s, {row['bound_ms'] / row['ms']:.3f} of the "
+        f"bound), plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.3f} ms by {row['bound_by']} {tag}"
+    )
+    print(f"slice 11 (attention serving) in {time.perf_counter() - t0:.1f} s")
+    launches = {arch: r["launches"] for arch, r in launched.items()}
+    launches["engine"] = engine["launches"]
+    return {"launches_serving": launches, "serving_row": row}
 
 
 def main():
@@ -2445,9 +2716,10 @@ def main():
     lm = lm_slice_parity()
     print(
         f"slice parity: {ARCH} full width, 2 layers, float32, card vs CPU: prefill logits "
-        f"{lm['prefill_logits']:.3e}, conv {lm['conv']:.3e}, ssm {lm['ssm']:.3e} (tol "
-        f"{LM_TOL}); 4 decode steps: logits {lm['decode_logits']:.3e}, "
-        f"{lm['differing_tokens']} differing tokens; engine = sequential on the card"
+        f"{lm['prefill_logits']:.3e}, cache (conv, ssm, pos) {lm['cache']:.3e} (tol "
+        f"{LM_TOL}); 4 decode steps: logits {lm['decode_logits']:.3e}, cache "
+        f"{lm['decode_cache']:.3e}, {lm['differing_tokens']} differing tokens; engine = "
+        f"sequential on the card"
     )
 
     # ---- slice 3: InternLM2-1.8B dense LM training
@@ -2512,6 +2784,9 @@ def main():
         f"{time.perf_counter() - t0:.1f} s"
     )
 
+    # ---- slice 11: dense and MoE serving (Granite-8B, OLMoE-1B-7B, Minitron-8B)
+    attn_serving = attn_serve_phase(tag, fops, fref)
+
     main_row = next(r for r in rows if (r["B"], r["direction"]) == (64, "forward"))
     scan_row = scan_rows[0]
     print(json.dumps({"kernels": [{
@@ -2566,12 +2841,14 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
         "launches": lm_train_flash,
+        "launches_serving": attn_serving["launches_serving"],
         "max_abs_err": max(e["abs"] for c, e in flash_worst.items() if "float32" in c),
         "max_abs_err_bf16": max(e["abs"] for c, e in flash_worst.items() if "bfloat16" in c),
         "max_row_err_bf16": max(e["row"] for c, e in flash_worst.items() if "bfloat16" in c),
         **{key: flash_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms", "shape")},
         "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+        "by_shape": [flash_row, attn_serving["serving_row"]],
         "design": "bf16 head_dim 64/128: wgmma fed by a TMA/mbarrier ring, producer warpgroup; "
                   "float32: SIMT",
         "gpu": gpu,

@@ -1,8 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution for the archs the port runs.
 
-`KNOWN_ARCH_IDS` is the JAX registry's list; `ARCH_IDS` the archs ported so
-far.  A known arch that is not ported raises `NotImplementedError` naming
-it; an unknown one raises `KeyError`.
+`KNOWN_ARCH_IDS` is the JAX registry's list; `ARCH_IDS` the archs whose
+configs the port carries: the dense, moe and mamba1 ones that fit one card.
+llama3-405b and kimi-k2-1t-a32b are left out: their published configs
+shard over a mesh the port does not have.  A known arch that is not in
+`ARCH_IDS` raises `NotImplementedError` naming it; an unknown one raises
+`KeyError`.  What the port runs of each family is `models.model.PORTED`.
 """
 from __future__ import annotations
 
@@ -21,7 +24,13 @@ KNOWN_ARCH_IDS: Tuple[str, ...] = (
     "musicgen-large",
     "llama3-405b",
 )
-ARCH_IDS: Tuple[str, ...] = ("internlm2-1.8b", "falcon-mamba-7b")
+ARCH_IDS: Tuple[str, ...] = (
+    "minitron-8b",
+    "internlm2-1.8b",
+    "olmoe-1b-7b",
+    "granite-8b",
+    "falcon-mamba-7b",
+)
 
 
 def _module(arch_id: str):

@@ -31,14 +31,16 @@ splits a tree whose leaves lead with a device (or vmapped rank) axis into
 one tree a rank: the sharded runner's per-rank train states.  V-trace's
 inputs are plain arrays and cross with `params_from_jax`.
 
-`lm_params_from_jax` / `lm_params_to_jax` carry a language model (dense or
-Mamba1): the JAX package stacks its layers along a leading L axis, the port
-keeps one module per layer.  `lm_opt_state_from_jax` / `lm_opt_state_to_jax`
-carry the LM optimizer state of `launch.steps.make_optimizer` (the
-``chain`` tuple of ``()`` and ``AdamState(count, mu, nu)``, with ``mu`` and
-``nu`` shaped like the parameters) the same way.  A Mamba1 decode cache is
-stacked along L in both packages, so `params_from_jax` / `params_to_jax`
-carry it as it is.
+`lm_params_from_jax` / `lm_params_to_jax` carry a language model (dense,
+MoE or Mamba1): the JAX package stacks its layers along a leading L axis,
+the port keeps one module per layer.  `lm_opt_state_from_jax` /
+`lm_opt_state_to_jax` carry the LM optimizer state of
+`launch.steps.make_optimizer` (the ``chain`` tuple of ``()`` and
+``AdamState(count, mu, nu)``, with ``mu`` and ``nu`` shaped like the
+parameters) the same way.  A decode cache (``pos`` beside ``kv``'s ``k``
+and ``v``, or Mamba1's ``conv`` and ``ssm``) is stacked along L in both
+packages, so `lm_cache_from_jax` / `lm_cache_to_jax` carry it leaf by leaf
+as it is.
 """
 from __future__ import annotations
 
@@ -235,6 +237,25 @@ def lm_params_from_jax(params, cfg, device="cpu") -> LM:
 def lm_params_to_jax(model: LM):
     """The port's `LM` -> JAX LM params, ``layers`` stacked along L."""
     return params_to_jax(_stack_layers(model.tree()))
+
+
+_CACHE_KEYS = ({"pos", "kv"}, {"pos", "conv", "ssm"})
+
+
+def _check_cache(cache):
+    if set(cache) not in _CACHE_KEYS:
+        raise ValueError(f"not an LM decode cache: keys {sorted(cache)}")
+    return cache
+
+
+def lm_cache_from_jax(cache, device="cpu"):
+    """A JAX LM decode cache -> the port's (the same keys and layout)."""
+    return params_from_jax(_check_cache(cache), device)
+
+
+def lm_cache_to_jax(cache):
+    """The port's LM decode cache -> JAX's, as numpy arrays."""
+    return params_to_jax(_check_cache(cache))
 
 
 def _map_adam(state, fn):

@@ -1,10 +1,12 @@
 """Batched serving launcher: prefill a batch of prompts, then greedy decode.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
       --smoke --batch 4 --prompt-len 64 --gen 32 --device cpu
 
-The counterpart of `repro.launch.serve`.  Weights are random, drawn from
-``--seed``; so are the prompts.  It runs on CUDA unless ``--device`` says
+The counterpart of `repro.launch.serve`, for every arch in `ARCH_IDS`
+(dense, moe and mamba1); an attention model's cache holds ``prompt_len +
+gen`` tokens a stream.  Weights are random, drawn from ``--seed``; so are
+the prompts.  It runs on CUDA unless ``--device`` says
 otherwise, and raises when there is no GPU and no ``--device``.
 """
 from __future__ import annotations
@@ -39,7 +41,7 @@ def make_prompts(cfg, batch, prompt_len, seed, device):
 
 
 def generate(model, prompts, gen: int) -> Generation:
-    """Prefill ``prompts`` (B, S), then ``gen - 1`` greedy decode steps."""
+    """Prefill ``prompts`` (B, S) into a cache of S + gen, then ``gen - 1`` greedy decode steps."""
     cuda = prompts.is_cuda
 
     def clock():
@@ -48,7 +50,7 @@ def generate(model, prompts, gen: int) -> Generation:
         return time.perf_counter()
 
     t0 = clock()
-    prefill_logits, cache = M.prefill(model, prompts)
+    prefill_logits, cache = M.prefill(model, prompts, max_len=prompts.shape[1] + gen)
     t1 = clock()
     tok = torch.argmax(prefill_logits, dim=-1)  # (B, 1)
     out, logits = [tok], prefill_logits

@@ -1,4 +1,4 @@
-"""LM backbones for serving (port of `repro.models`, Mamba1 so far)."""
+"""LM backbones (port of `repro.models`): dense, MoE and Mamba1."""
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ModelConfig"]

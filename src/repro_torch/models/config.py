@@ -4,7 +4,8 @@
 config's names and defaults; a field joins when code that reads it is
 ported.  ``use_pallas`` is not carried over: the port picks a kernel or its
 plain version by the device a tensor lies on.  The parameter counts cover
-the families the port runs (dense and mamba1) and raise for the others.
+the families the port runs (dense, moe and mamba1) and raise for the
+others.  The MoE router's loss weights join with MoE training.
 """
 from __future__ import annotations
 
@@ -26,6 +27,13 @@ class ModelConfig:
     num_kv_heads: int = 0
     d_ff: int = 0
     head_dim: int = 0  # 0 -> d_model // num_heads
+
+    # --- MoE ---
+    num_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0  # per-expert hidden dim; 0 -> d_ff
+    capacity_factor: float = 1.25
+    moe_group_size: int = 512  # tokens per dispatch group
 
     # --- SSM (mamba) ---
     ssm_state: int = 0
@@ -50,6 +58,8 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+        if self.arch_type == "moe" and self.moe_d_ff == 0:
+            object.__setattr__(self, "moe_d_ff", self.d_ff)
 
     @property
     def activation_dtype(self) -> torch.dtype:
@@ -61,18 +71,24 @@ class ModelConfig:
         """Mamba's expanded width."""
         return self.ssm_expand * self.d_model
 
+    def _attn_params(self) -> int:
+        hd, nq, nkv = self.head_dim, self.num_heads, self.num_kv_heads
+        return self.d_model * hd * (nq + 2 * nkv) + nq * hd * self.d_model
+
     def param_count(self) -> int:
         """Approximate parameter count, by the JAX config's formula.
 
         Like the reference, the mamba1 count leaves out ``conv_b`` and
-        ``dt_proj_b`` (``2 * d_inner`` per layer).
+        ``dt_proj_b`` (``2 * d_inner`` per layer), and no count has the
+        final norm's ``d_model`` scales.
         """
         d, L, v = self.d_model, self.num_layers, self.vocab
         if self.arch_type == "dense":
-            hd, nq, nkv = self.head_dim, self.num_heads, self.num_kv_heads
-            attn = d * hd * (nq + 2 * nkv) + nq * hd * d
-            per_layer = attn + 3 * d * self.d_ff + 2 * d
+            per_layer = self._attn_params() + 3 * d * self.d_ff + 2 * d
             return int(2 * v * d + L * per_layer)
+        if self.arch_type == "moe":
+            moe = self.num_experts * 3 * d * self.moe_d_ff + d * self.num_experts
+            return int(2 * v * d + L * (self._attn_params() + moe + 2 * d))
         if (self.arch_type, self.mamba_version) != ("ssm", 1):
             raise NotImplementedError(
                 f"param_count: the {self.arch_type!r} family is not ported yet"
@@ -91,8 +107,13 @@ class ModelConfig:
         return int(2 * v * d + L * per_layer)
 
     def active_param_count(self) -> int:
-        """Parameters touched per token: all of them in the ported families."""
-        return self.param_count()
+        """Parameters touched per token (an MoE layer activates top_k of num_experts)."""
+        if self.arch_type != "moe":
+            return self.param_count()
+        d = self.d_model
+        moe_active = self.top_k * 3 * d * self.moe_d_ff + d * self.num_experts
+        return int(2 * self.vocab * d
+                   + self.num_layers * (self._attn_params() + moe_active + 2 * d))
 
     def flops_param_count(self) -> int:
         """Parameters as counted by 6·N·D: no ported family shares weights."""

@@ -1,20 +1,24 @@
-"""Where the time of Falcon-Mamba-7B serving goes on a CUDA GPU.
+"""Where the time of LM serving goes on a CUDA GPU.
 
-    PYTHONPATH=src python -m repro_torch.serving.breakdown
+    PYTHONPATH=src python -m repro_torch.serving.breakdown [--arch falcon-mamba-7b]
 
-Builds the published config at full depth (random weights from a seed),
-warms up with one prefill and one decode step, then times one prefill of
-4 prompts of 2048 tokens and 8 greedy decode steps with the host clock
-around synchronised work (the launcher's shapes in chip_smoke.py).  The same prefill and steps run
-once more under `torch.profiler`, which gives the device's busy time per
-phase (the sum of its kernels' times), its idle share of the profiled
-wall, the device operations per phase and per decode token, and the
-kernels that take the most device time; the selective-scan wrapper's
-launch counter stands beside the profiler's count of its kernel.  Prints
-one JSON object.
+Builds ``--arch``'s published config at full depth (random weights from a
+seed; any arch of `ARCH_IDS`: falcon-mamba-7b by default, granite-8b,
+minitron-8b, olmoe-1b-7b, internlm2-1.8b), warms up with one prefill and
+one decode step, then times one prefill of 4 prompts of 2048 tokens into
+a cache of 2048 + 8 tokens and 8 greedy decode steps with the host clock
+around synchronised work (the launcher's shapes in chip_smoke.py).  The
+same prefill and steps run once more under `torch.profiler`, which gives
+the device's busy time per phase (the sum of its kernels' times), its
+idle share of the profiled wall, the device operations per phase and per
+decode step, and the kernels that take the most device time; the hand
+kernel on the path (selective_scan for mamba1, flash_attention for dense
+and moe) has its wrapper's launch counter beside the profiler's count of
+its kernel.  Prints one JSON object.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 
@@ -23,13 +27,17 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
 from repro_torch.breakdown import _device_summary, _timed
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.launch.serve import make_prompts
 from repro_torch.models import model as M
 
-SCAN_KERNEL = "selective_scan_kernel"
-ARCH, BATCH, PROMPT_LEN, DECODE_STEPS = "falcon-mamba-7b", 4, 2048, 8
+BATCH, PROMPT_LEN, DECODE_STEPS = 4, 2048, 8
+# the hand kernel on each family's serving path: (wrapper, the CUDA kernel's name)
+PATH_KERNEL = {"mamba1": (selective_scan, "selective_scan_kernel"),
+               "dense": (flash_attention, "flash_attention_"),
+               "moe": (flash_attention, "flash_attention_")}
 
 
 def _decode(model, cache, tok, steps):
@@ -39,31 +47,36 @@ def _decode(model, cache, tok, steps):
     return cache, tok
 
 
-def _profiled(fn, *args):
+def _profiled(op, kernel, fn, *args):
     """``fn(*args)`` under the profiler: its output and a device summary."""
-    before = selective_scan.launches
+    before = op.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out, wall = _timed(fn, *args)
-    summary = _device_summary(prof, wall, SCAN_KERNEL)
-    summary[SCAN_KERNEL]["counter"] = selective_scan.launches - before
+    summary = _device_summary(prof, wall, kernel)
+    summary[kernel]["counter"] = op.launches - before
     return out, summary
 
 
-def main():
+def main(argv=None):
     """Run the breakdown and print it as JSON."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", choices=ARCH_IDS, default="falcon-mamba-7b")
+    args = p.parse_args(argv)
     device = resolve_device()
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
+    op, kernel = PATH_KERNEL[M.family(cfg)]
     model = M.init_model(torch.Generator(device).manual_seed(0), cfg)
     prompts = make_prompts(cfg, BATCH, PROMPT_LEN, 0, device)
+    max_len = PROMPT_LEN + DECODE_STEPS
 
-    (logits, cache), cold_prefill_s = _timed(M.prefill, model, prompts)
+    (logits, cache), cold_prefill_s = _timed(M.prefill, model, prompts, max_len)
     tok = torch.argmax(logits, dim=-1)
     _, cold_step_s = _timed(_decode, model, cache, tok, 1)
-    (logits, cache), prefill_s = _timed(M.prefill, model, prompts)
+    (logits, cache), prefill_s = _timed(M.prefill, model, prompts, max_len)
     _, decode_s = _timed(_decode, model, cache, tok, DECODE_STEPS)
     phases = {}
-    (logits, cache), phases["prefill"] = _profiled(M.prefill, model, prompts)
-    _, phases["decode"] = _profiled(_decode, model, cache, tok, DECODE_STEPS)
+    (logits, cache), phases["prefill"] = _profiled(op, kernel, M.prefill, model, prompts, max_len)
+    _, phases["decode"] = _profiled(op, kernel, _decode, model, cache, tok, DECODE_STEPS)
     phases["decode"]["kernel_launches_per_token_step"] = (
         phases["decode"]["kernel_launches"] / DECODE_STEPS
     )
@@ -74,7 +87,7 @@ def main():
     print(json.dumps({
         "gpu": gpu,
         "torch": torch.__version__,
-        "arch": ARCH,
+        "arch": args.arch,
         "layers": cfg.num_layers,
         "batch": BATCH,
         "prompt_len": PROMPT_LEN,

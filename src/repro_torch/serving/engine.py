@@ -1,18 +1,18 @@
 """Continuous-batching serving engine (counterpart of `repro.serving.engine`).
 
-A fixed pool of ``max_slots`` generation slots shares one decode cache;
-requests are admitted into free slots (a per-request prefill writes the
-prompt's final states into the slot's cache rows), and one `decode_step`
+A fixed pool of ``max_slots`` generation slots shares one decode cache,
+sized for ``prompt_capacity + max_new_tokens`` tokens a slot; requests are
+admitted into free slots (a per-request prefill lays the prompt's K/V, or
+its final states, into the slot's cache rows), and one `decode_step`
 advances *all* live slots each tick.  Slots can be at different depths
-because the cache keeps per-stream positions.  Finished slots (at
+because the cache keeps per-stream positions.  Finished slots (EOS or
 ``max_new_tokens``) are freed and refilled from the queue.
 
 As in the reference, prefill runs per admission rather than chunked beside
 decode, and dead slots still go through decode (their outputs are
-discarded).  Unlike it, the slot merge writes into the pool's cache in
-place rather than building a new one; a request has no EOS id (no ported
-path has a tokenizer); and there is no prompt capacity, since a Mamba1
-cache has no sequence length to size.
+discarded).  Unlike it, the slot merge (and an attention model's decode
+step) writes into the pool's cache in place rather than building a new
+one.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import model as M
+from repro_torch.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -34,6 +35,7 @@ class Request:
     uid: int
     prompt: np.ndarray  # (S,) int32
     max_new_tokens: int = 32
+    eos_id: Optional[int] = None
     # filled by the engine
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
@@ -43,35 +45,42 @@ class ServingEngine:
     """Slot pool over one LM; greedy decoding.
 
     ``model`` must lie on ``device`` (CUDA by default; raises without one
-    unless the caller passes ``device="cpu"``).
+    unless the caller passes ``device="cpu"``).  Prompts hold at most
+    ``prompt_capacity`` tokens; the cache holds ``prompt_capacity +
+    max_new_tokens`` a slot.
     """
 
-    def __init__(self, model: M.LM, max_slots: int = 4, device=None):
+    def __init__(self, model: M.LM, max_slots: int = 4, prompt_capacity: int = 64,
+                 max_new_tokens: int = 64, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.max_slots = max_slots
+        self.prompt_capacity = prompt_capacity
+        self.capacity = prompt_capacity + max_new_tokens
         self.queue: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.finished: List[Request] = []
-        self.cache = M.init_cache(model.cfg, max_slots, self.device)
+        self.cache = M.init_cache(model.cfg, max_slots, self.capacity, self.device)
         self.last_tokens = np.zeros((max_slots, 1), np.int64)
 
     # ------------------------------------------------------------- admission
 
     def submit(self, req: Request):
-        """Queue ``req``; its prompt must be a 1-D token array."""
+        """Queue ``req``; its prompt must be a 1-D array of at most ``prompt_capacity`` tokens."""
         if req.prompt.ndim != 1:
             raise ValueError("prompt must be a 1-D token array")
+        if len(req.prompt) > self.prompt_capacity:
+            raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds the prompt capacity "
+                             f"{self.prompt_capacity}")
         self.queue.append(req)
 
     def _merge_slot(self, slot: int, one_cache):
-        """Copy a single-stream cache into pool slot ``slot``.
+        """Copy a single-stream cache into pool slot ``slot``, in place.
 
-        Cache leaves have the stream dim at index 1 (conv/ssm are stacked
-        (L, B, ...)) except ``pos``, which is (B,).
+        Cache leaves have the stream dim at index 1 (kv/conv/ssm are
+        stacked (L, B, ...)) except ``pos``, which is (B,).
         """
-        for name, pool in self.cache.items():
-            one = one_cache[name]
+        for pool, one in zip(tree_leaves(self.cache), tree_leaves(one_cache)):
             if pool.dim() == 1:  # pos (B,)
                 pool[slot] = one[0]
             else:
@@ -84,7 +93,7 @@ class ServingEngine:
             req = self.queue.popleft()
             self.slots[slot] = req
             tokens = torch.as_tensor(req.prompt[None, :], dtype=torch.long, device=self.device)
-            logits, one_cache = M.prefill(self.model, tokens)
+            logits, one_cache = M.prefill(self.model, tokens, max_len=self.capacity)
             self._merge_slot(slot, one_cache)
             tok = int(torch.argmax(logits[0, -1]))
             req.output.append(tok)
@@ -109,7 +118,9 @@ class ServingEngine:
             req.output.append(tok)
             emitted[req.uid] = tok
             self.last_tokens[i, 0] = tok
-            if len(req.output) >= req.max_new_tokens:
+            if (req.eos_id is not None and tok == req.eos_id) or (
+                len(req.output) >= req.max_new_tokens
+            ):
                 req.done = True
                 self.finished.append(req)
                 self.slots[i] = None

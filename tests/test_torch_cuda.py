@@ -23,7 +23,14 @@ query tiles, a window that starts inside a kv tile; T = 129, V = 255 and
 257 around 256-wide vocab tiles, d and V that are not multiples of 8),
 and a smoke-sized InternLM2 train step on the GPU must launch the flash
 kernel twice a layer (remat runs each layer's forward again) and the
-xent kernel and its combine once.  A seed-lane (3 lanes) rec-MAPPO and
+xent kernel and its combine once.  The flash kernel is held at the
+attention serving path's shapes too (Granite's 32/8 heads at prompts of
+16, 37 and 64 tokens, OLMoE's 16/16 at 50, and the launchers' prefills
+at 4 x 2048 and Minitron's 1 x 512); a smoke-sized Granite,
+Minitron and OLMoE prefill on the GPU launches it once a layer and decode
+never, with the logits, the KV cache and three decode steps equal to the
+CPU's at 1e-4, and the engine on the card equals sequential
+generation.  A seed-lane (3 lanes) rec-MAPPO and
 IPPO update on the card must match the same update on the CPU at 1e-4,
 rec-MAPPO's with no more scan launches than one lane needs.  Every
 replay system's training iteration (act, write the table, update, a hard
@@ -42,6 +49,7 @@ waits on the card once, for its one packed copy of the decisions, and the
 runners' telemetry tap never waits on it (its copies land behind the
 queued work and are delivered later).
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -390,6 +398,16 @@ def test_smoke_prefill_launches_the_scan_once_a_layer(cuda):
     (1, 4, 2, 200, 128, False, 0),
     (1, 2, 1, 300, 128, True, 70),   # a window that starts inside a kv tile
     (1, 2, 2, 384, 64, True, 200),
+    # the serving path's shapes: Granite's 32/8 heads (n_rep 4) at the engine's short
+    # prompts, under one 128-row query tile, and OLMoE's 16/16
+    (1, 32, 8, 16, 128, True, 0),
+    (1, 32, 8, 37, 128, True, 0),
+    (1, 32, 8, 64, 128, True, 0),
+    (1, 16, 16, 50, 128, True, 0),
+    # and the launchers' prefills: Granite's and OLMoE's at 4 x 2048, Minitron's at 1 x 512
+    (4, 32, 8, 2048, 128, True, 0),
+    (4, 16, 16, 2048, 128, True, 0),
+    (1, 32, 8, 512, 128, True, 0),
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, B, Hq, Hkv, S, hd, causal, window,
                                                       dtype):
@@ -403,6 +421,58 @@ def test_flash_attention_kernel_matches_plain_version(cuda, B, Hq, Hkv, S, hd, c
     assert out.dtype == q.dtype
     elem, row, _ = flash_ref.kernel_errors(out, q, k, v, causal=causal, window=window)
     assert elem <= 1 and row <= flash_ref.ROW_TOL, (elem, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "minitron-8b", "olmoe-1b-7b"])
+def test_smoke_attention_serving_launches_flash_once_a_layer(cuda, arch):
+    """Prefill launches the flash kernel once a layer, decode none; card = CPU at 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+
+    cfg = get_smoke_config(arch)
+    cpu = M.init_model(torch.Generator().manual_seed(0), cfg)
+    gpu = M.LM(tree_map(lambda t: t.to(cuda, copy=True), cpu.tree()), cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 70), generator=torch.Generator().manual_seed(1))
+    flash_attention.launches = 0
+    lg, cg = M.prefill(gpu, tokens.to(cuda), max_len=74)
+    assert flash_attention.launches == cfg.num_layers
+    lc, cc = M.prefill(cpu, tokens, max_len=74)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    for name in ("k", "v"):
+        torch.testing.assert_close(cg["kv"][name].cpu(), cc["kv"][name], atol=1e-4, rtol=1e-4)
+    tok = lc.argmax(-1)
+    for _ in range(3):
+        lg, cg = M.decode_step(gpu, cg, tok.to(cuda))
+        lc, cc = M.decode_step(cpu, cc, tok)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        tok = lc.argmax(-1)
+    assert flash_attention.launches == cfg.num_layers  # decode runs no kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "olmoe-1b-7b"])
+def test_engine_on_the_card_equals_sequential_generation(cuda, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_smoke_config(arch)
+    model = M.init_model(torch.Generator(cuda).manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (n,)).astype(np.int32) for n in (12, 9, 15)]
+    engine = ServingEngine(model, max_slots=2, prompt_capacity=16, max_new_tokens=6,
+                           device=cuda)
+    for i, p in enumerate(prompts):
+        engine.submit(Request(uid=i, prompt=p, max_new_tokens=6))
+    flash_attention.launches = 0
+    got = {r.uid: r.output for r in engine.run_until_drained()}
+    assert flash_attention.launches == 3 * cfg.num_layers  # one prefill an admission
+    for i, p in enumerate(prompts):
+        one = torch.as_tensor(p[None], dtype=torch.long, device=cuda)
+        assert got[i] == serve.generate(model, one, 6).tokens[0].tolist()
 
 
 @pytest.mark.cuda

@@ -212,7 +212,7 @@ def test_prefill_and_decode_step():
     assert torch.equal(cache["pos"], torch.full((3,), 19, dtype=torch.int32))  # input kept
 
     with pytest.raises(NotImplementedError, match="mamba2"):
-        TM.init_cache(dataclasses.replace(tcfg, mamba_version=2), 1, "cpu")
+        TM.init_cache(dataclasses.replace(tcfg, mamba_version=2), 1, 8, "cpu")
 
 
 # ----------------------------------------------------- engine and launcher
