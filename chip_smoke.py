@@ -224,6 +224,35 @@ admission (its new shapes join 11's parity: Granite's 32/8 heads at S =
 38. kernel timing: flash_attention at Granite's prefill shape (4, 32/8,
     2048, 128) bf16 causal, beside SDPA and its bound.
 
+The hybrid, vlm and audio families (Zamba2-2.7B, LLaVA-NeXT-Mistral-7B,
+MusicGen-Large), the twelfth slice; flash_attention lies on every prefill
+and every engine admission, Zamba2's head_dim 80 on the kernel's WMMA
+instance (its new shapes join 11's parity: Zamba2's 32/32 heads at hd 80,
+window 4096, at S = 16, 37, 64 and 4 x 2048, and a window of 1024 inside
+S = 2048; MusicGen's 32/32 at hd 64, 4 x 2048; LLaVA's 32/8 at 4 x 4096
+and at a ragged 2,917):
+
+39. launcher: the three published configs (54, 32 and 48 layers, bf16,
+    random weights from a seed): Zamba2 at batch 4 x prompt 2048, LLaVA
+    at batch 4 x 4096 positions (2,880 vision embeddings + 1,216 text
+    tokens), MusicGen at batch 4 x 2048 frames of 4 codebooks, 32 tokens
+    each: prefill and decode walls beside their bounds, tok/s, peak
+    memory, flash_attention launched 9 (Zamba2's shared-block
+    invocations), 32 and 48 times by the prefill and never by decode;
+    parameters = the config's count plus what the reference's formula
+    leaves out;
+40. engine: Zamba2-2.7B behind the continuous-batching engine, 4 slots,
+    8 requests of 16-64 prompt tokens x 16 new tokens, 9 flash launches
+    an admission;
+41. slice parity: each family at full width in float32 (Zamba2 cut to 4
+    layers with the shared block after every 2, a prompt of 300 over 3
+    SSD chunks; LLaVA and MusicGen to 2 layers, LLaVA's vision tokens to
+    64), the same weights on the card and the CPU: prefill logits and
+    every cache leaf at 1e-4, then 4 decode steps on equal tokens;
+    Zamba2's engine on the card equals sequential generation;
+42. kernel timing: flash_attention at the three new prefill shapes, bf16
+    causal, beside its plain version, SDPA and its bound.
+
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -302,6 +331,16 @@ FLASH_CASES = [
     (4, 32, 8, 2048, 128, True, 0, torch.bfloat16),
     (4, 16, 16, 2048, 128, True, 0, torch.bfloat16),
     (1, 32, 8, 512, 128, True, 0, torch.bfloat16),
+    # slice 12: Zamba2's shared block (32/32 heads, hd 80: the WMMA instance; window
+    # 4096) at the engine's short prompts and the launcher's 4 x 2048, and a window of
+    # 1024 inside S = 2048; MusicGen's 32/32 at hd 64; LLaVA's 32/8 at 4 x 4096 and a
+    # ragged S (2,880 vision + 37 text positions, not a multiple of a tile)
+    *[(1, 32, 32, S, 80, True, 4096, torch.bfloat16) for S in (16, 37, 64)],
+    (4, 32, 32, 2048, 80, True, 4096, torch.bfloat16),
+    (1, 32, 32, 2048, 80, True, 1024, torch.bfloat16),
+    (4, 32, 32, 2048, 64, True, 0, torch.bfloat16),
+    (4, 32, 8, 4096, 128, True, 0, torch.bfloat16),
+    (1, 32, 8, 2917, 128, True, 0, torch.bfloat16),
 ]
 FLASH_PATH = (4, 16, 8, 4096, 128)  # InternLM2-1.8B at batch 4 x 4096
 FLASH_SERVE_PATH = (4, 32, 8, 2048, 128)  # Granite-8B's prefill at batch 4 x 2048
@@ -383,6 +422,21 @@ SWEEP_SYSTEMS, SWEEP_ENVS = ("ippo", "vdn", "rec_ippo", "maddpg"), ("matrix_game
 # cut to 2 layers in float32
 ATTN_SERVE = [("granite-8b", 4, 2048, 32), ("olmoe-1b-7b", 4, 2048, 32), ("minitron-8b", 1, 512, 8)]
 ATTN_ENGINE_ARCH = "granite-8b"
+# slice 12, the hybrid, vlm and audio families at their published configs, random weights
+# from a seed: (arch, batch, prompt positions, tokens) through the launcher (LLaVA's 4096
+# are its 2,880 vision embeddings + 1,216 text tokens; MusicGen's 2048 frames of 4
+# codebooks); the engine at Zamba2-2.7B; card vs CPU at full width, cut as below, float32
+FAMILY_SERVE = [("zamba2-2.7b", 4, 2048, 32), ("llava-next-mistral-7b", 4, 4096, 32),
+                ("musicgen-large", 4, 2048, 32)]
+FAMILY_ENGINE_ARCH = "zamba2-2.7b"
+# (config changes, prompt length): Zamba2's 300 runs 3 SSD chunks of 128 (the last
+# padded); LLaVA's 40 text tokens follow 64 vision embeddings
+FAMILY_PARITY = {"zamba2-2.7b": (dict(num_layers=4, attn_every=2), 300),
+                 "llava-next-mistral-7b": (dict(num_layers=2, vision_tokens=64), 104),
+                 "musicgen-large": (dict(num_layers=2), 40)}
+# the three prefills as flash runs them: (B, Hq, Hkv, S, hd, window)
+FLASH_FAMILY_PATHS = [(4, 32, 32, 2048, 80, 4096), (4, 32, 8, 4096, 128, 0),
+                      (4, 32, 32, 2048, 64, 0)]
 
 
 def _require(cond, msg):
@@ -2015,7 +2069,7 @@ def serve_launcher(sops):
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    prompts = serve.make_prompts(cfg, 4, 2048, 0, "cuda")
+    prompts = serve.make_inputs(cfg, 4, 2048, 0, "cuda")["tokens"]
     warm = serve.generate(model, prompts, 2)  # first calls: cuBLAS, allocator
     cold_prefill_s = warm.prefill_s
     del warm
@@ -2069,11 +2123,13 @@ def serve_engine(sops, model):
     }
 
 
-def lm_slice_parity(arch=ARCH):
-    """Full width, 2 layers, float32: the same weights on the card and the CPU.
+def lm_slice_parity(arch=ARCH, changes=None, prompt=40):
+    """Full width cut by ``changes`` (default: to 2 layers), float32: the same weights on
+    the card and the CPU.
 
-    Prefill logits and every cache leaf, then 4 decode steps on equal
-    tokens, then the engine on the card against sequential generation.
+    Prefill logits and every cache leaf for 2 prompts of ``prompt``
+    positions, then 4 decode steps on equal tokens, then (a token-only
+    model) the engine on the card against sequential generation.
     """
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -2081,12 +2137,14 @@ def lm_slice_parity(arch=ARCH):
     from repro_torch.serving import Request, ServingEngine
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=2, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **(changes or {"num_layers": 2}))
     cpu = M.init_model(torch.Generator().manual_seed(1), cfg)
     gpu = M.LM(tree_map(lambda t: t.to("cuda"), cpu.tree()), cfg)
-    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 40)))
-    lc, cc = M.prefill(cpu, tokens, max_len=44)
-    lg, cg = M.prefill(gpu, tokens.cuda(), max_len=44)
+    inputs = serve.make_inputs(cfg, 2, prompt, 2, "cpu")
+    tokens, vision = inputs["tokens"], inputs.get("vision_embeds")
+    lc, cc = M.prefill(cpu, tokens, max_len=prompt + 4, vision_embeds=vision)
+    lg, cg = M.prefill(gpu, tokens.cuda(), max_len=prompt + 4,
+                       vision_embeds=None if vision is None else vision.cuda())
     out = {"prefill_logits": _err(lg.cpu(), lc)}
     _require(_within(lg.cpu(), lc, LM_TOL), f"prefill logits differ by {out['prefill_logits']}")
     _require(torch.equal(cg["pos"].cpu(), cc["pos"]), "pos differs")
@@ -2095,7 +2153,7 @@ def lm_slice_parity(arch=ARCH):
         out["cache"] = max(out["cache"], _err(x.cpu(), y))
         _require(_within(x.cpu(), y, LM_TOL), f"a cache leaf differs by {_err(x.cpu(), y)}")
 
-    # 4 greedy steps, both fed the CPU's tokens
+    # 4 greedy steps, both fed the CPU's tokens (audio: a token a codebook)
     tok = lc.argmax(-1)
     differing, worst = [], 0.0
     for step in range(4):
@@ -2103,12 +2161,14 @@ def lm_slice_parity(arch=ARCH):
         lg, cg = M.decode_step(gpu, cg, tok.cuda())
         worst = max(worst, _err(lg.cpu(), lc))
         want, got = lc.argmax(-1), lg.cpu().argmax(-1)
-        for i in torch.nonzero(want != got)[:, 0].tolist():
-            top2 = lc[i, 0].topk(2).values
+        rows = lc.reshape(-1, cfg.vocab)
+        for i in torch.nonzero(want.reshape(-1) != got.reshape(-1))[:, 0].tolist():
+            top2 = rows[i].topk(2).values
             gap = float(top2[0] - top2[1])
-            print(f"slice parity: {arch} decode step {step} stream {i}: card token "
-                  f"{int(got[i, 0])}, CPU token {int(want[i, 0])}, CPU top-2 gap {gap:.3e}")
-            _require(gap < LM_TOL, f"decode step {step} stream {i}: tokens differ, gap {gap}")
+            print(f"slice parity: {arch} decode step {step} row {i}: card token "
+                  f"{int(got.reshape(-1)[i])}, CPU token {int(want.reshape(-1)[i])}, CPU top-2 "
+                  f"gap {gap:.3e}")
+            _require(gap < LM_TOL, f"decode step {step} row {i}: tokens differ, gap {gap}")
             differing.append((step, i))
         tok = want
     out["decode_logits"] = worst
@@ -2117,6 +2177,8 @@ def lm_slice_parity(arch=ARCH):
                                                        for y in tree_leaves(cc))),
              f"the cache after decode differs by {out['decode_cache']}")
     out["differing_tokens"] = len(differing)
+    if cfg.arch_type in ("vlm", "audio"):  # the engine covers token-only archs
+        return out
 
     # the engine on the card = sequential generation (tests/test_serving.py)
     rng = np.random.default_rng(0)
@@ -2176,33 +2238,42 @@ def xent_parity(xops, xref):
     return worst
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, f32_flops=0):
+    """Bytes at 3.35 TB/s against operations: bf16 at 989 TFLOP/s, float32 at 67."""
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-              "operations": flops / BF16_FLOPS_PER_S * 1e3}
+              "operations": (flops / BF16_FLOPS_PER_S + f32_flops / F32_FLOPS_PER_S) * 1e3}
     bound_by = max(bounds, key=bounds.get)
     return bounds, bound_by
 
 
-def flash_timing(fops, fref, shape=FLASH_PATH):
-    """Kernel, plain, SDPA and bound times at ``shape`` (the training shape), bf16, causal."""
+def flash_timing(fops, fref, shape=FLASH_PATH, window=0):
+    """Kernel, plain, SDPA and bound times at ``shape`` (the training shape), bf16, causal.
+
+    SDPA has no window: a ``window`` is timed only where it is at least S,
+    where it keeps every causal pair.
+    """
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.ops import _live_pairs
+
     B, Hq, Hkv, S, hd = shape
+    _require(not window or window >= S, f"SDPA has no window of {window} < S = {S}")
     q, k, v = _attn_inputs(B, Hq, Hkv, S, hd, torch.bfloat16, seed=0)
-    ms = _time_ms(lambda: fops._launch(q, k, v, True, 0), reps=10, inner=5)
-    plain_ms = _time_ms(lambda: fref.attention_ref(q, k, v), reps=3, inner=1)
+    ms = _time_ms(lambda: fops._launch(q, k, v, True, window), reps=10, inner=5)
+    plain_ms = _time_ms(lambda: fref.attention_ref(q, k, v, window=window), reps=3, inner=1)
     library_ms = _time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
         reps=10, inner=5)
     # each input read once, the output written once; two products over the
     # S (S + 1) / 2 live (query, key) pairs of each (b, h)
     nbytes = 2 * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
-    flops = 4 * hd * (S * (S + 1) // 2) * B * Hq
+    flops = 4 * hd * _live_pairs(S, True, window) * B * Hq
     bounds, bound_by = _bound(nbytes, flops)
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
             "flops": flops, "bytes_ms": bounds["bytes"], "flop_ms": bounds["operations"],
             "bound_ms": bounds[bound_by], "bound_by": bound_by,
-            "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} hd={hd} causal bf16"}
+            "shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} hd={hd} causal"
+                     f"{f' window={window}' if window else ''} bf16"}
 
 
 def xent_timing(xops, xref):
@@ -2361,54 +2432,105 @@ class _RoutingRecorder:
         return routed, sum(kept), used, dropped
 
 
+def _attention_layers(cfg):
+    """Layers that run attention, hence flash once a prefill: a hybrid's shared-block
+    invocations, every layer elsewhere."""
+    return cfg.num_attn_invocations if cfg.arch_type == "hybrid" else cfg.num_layers
+
+
+def _uncounted_params(cfg):
+    """Parameters `ModelConfig.param_count` leaves out, as the reference's formula does:
+    the final norm's d_model scales and, a mamba2 layer, ``conv_b`` (d_inner + 2
+    ssm_state), ``dt_bias`` (ssm_heads) and ``norm_scale`` (d_inner)."""
+    if cfg.arch_type != "hybrid":
+        return cfg.d_model
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return cfg.d_model + cfg.num_layers * ((di + 2 * n) + h + di)
+
+
+def _ssd_flops(cfg, B, S):
+    """Float32 operations of mamba2's SSD over a prompt of S, every layer (`ssd_chunked`):
+    a chunk of l takes C.B over its l (l + 1) / 2 causal pairs and M.(x dt) for each
+    head, its input to the state and the entering state's output (2 l n h p each)."""
+    l = min(cfg.ssm_chunk, S)
+    chunks = -(-S // l)
+    n, h, p = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    pairs = l * (l + 1) // 2
+    per_chunk = 2 * n * pairs + 2 * h * p * pairs + 2 * (2 * l * n * h * p)
+    return per_chunk * chunks * B * cfg.num_layers
+
+
 def _serve_bounds(cfg, B, S, gen, experts_used=None):
     """Least prefill and decode-step times (ms) on this card for the launcher's work.
 
-    Prefill: the layers' products over B * S tokens (an MoE layer's top_k
-    experts a token and its router) plus attention over the causal pairs,
-    and the last position's unembedding, at 989 TFLOP/s; or the weights
-    read once and the KV cache written once, at 3.35 TB/s.  A decode step
-    at the run's mean position: the weights it needs read once (an MoE
-    layer's attention, router and ``experts_used`` of its experts, as this
-    run's routing kept them), the KV cache read up to each stream's
-    position, the unembedding; or the same products for B tokens.
+    Prefill: the layers' products over B * S positions (an MoE layer's
+    top_k experts a token and its router; a hybrid's mamba2 projections
+    every layer and its shared block at each of its invocations) plus
+    attention over the causal pairs, and the last position's unembedding,
+    at 989 TFLOP/s in bf16, and a hybrid's SSD at 67 TFLOP/s in float32;
+    or the weights read once (a shared block once), the embedding rows
+    (an audio position's K, a vlm's vision positions its input rows), the
+    KV cache and a hybrid's float32 conv and SSM states written once, at
+    3.35 TB/s.  A decode step at the run's mean position: the weights it
+    needs read once (an MoE layer's attention, router and
+    ``experts_used`` of its experts, as this run's routing kept them; a
+    shared block at every invocation), the KV cache read up to each
+    stream's position, the conv and SSM states read and written, the K
+    unembeddings of audio; or the same products for B tokens.
     """
     from repro_torch.kernels.flash_attention.ops import _live_pairs
 
     d, L, V, hd = cfg.d_model, cfg.num_layers, cfg.vocab, cfg.head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    K = cfg.num_codebooks or 1
     attn = d * hd * (nq + 2 * nkv) + nq * hd * d
+    block = attn + 3 * d * cfg.d_ff
+    n_att = _attention_layers(cfg)
+    state_bytes = pre_f32 = dec_f32 = 0
     if cfg.arch_type == "moe":
         expert = 3 * d * cfg.moe_d_ff
-        active = attn + cfg.top_k * expert + d * cfg.num_experts
-        stored = attn + cfg.num_experts * expert + d * cfg.num_experts
-        read = attn + (experts_used or cfg.num_experts) * expert + d * cfg.num_experts
+        active = L * (attn + cfg.top_k * expert + d * cfg.num_experts)
+        stored = L * (attn + cfg.num_experts * expert + d * cfg.num_experts)
+        read = L * (attn + (experts_used or cfg.num_experts) * expert + d * cfg.num_experts)
+    elif cfg.arch_type == "hybrid":
+        di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+        mixer = d * (2 * di + 2 * n + h) + di * d  # in_proj, out_proj
+        active = read = L * mixer + n_att * block
+        stored = L * mixer + block
+        state_bytes = 4 * L * B * (h * n * p + (cfg.ssm_conv - 1) * (di + 2 * n))
+        pre_f32 = _ssd_flops(cfg, B, S)
+        dec_f32 = 6 * L * B * h * n * p  # the state's decay, input and output
     else:
-        active = stored = read = attn + 3 * d * cfg.d_ff
+        active = stored = read = L * block
     e = 2  # bf16
     C = min(S + gen, cfg.attn_window) if cfg.attn_window else S + gen
-    kv_row = 2 * L * nkv * hd * e  # K and V of one position, every layer
+    kv_row = 2 * n_att * nkv * hd * e  # K and V of one position, every attention layer
     pairs = _live_pairs(S, True, cfg.attn_window)
-    pre_flops = 2 * active * L * B * S + 4 * hd * pairs * B * nq * L + 2 * d * V * B
-    pre_bytes = (L * stored + d * V) * e + B * S * d * e + kv_row * B * C
+    pre_flops = 2 * active * B * S + 4 * hd * pairs * B * nq * n_att + 2 * d * V * K * B
+    pre_bytes = (stored + d * V * K) * e + B * S * K * d * e + kv_row * B * C + state_bytes
     p = S + (gen - 1) / 2  # the decode steps' mean position
     ctx = min(p + 1, C)
-    dec_flops = 2 * B * (L * active + d * V) + 4 * hd * ctx * nq * L * B
-    dec_bytes = (L * read + d * V) * e + kv_row * B * ctx
+    dec_flops = 2 * B * (active + d * V * K) + 4 * hd * ctx * nq * n_att * B
+    dec_bytes = (read + d * V * K) * e + kv_row * B * ctx + 2 * state_bytes
     bounds = {}
-    for name, flops, nbytes in (("prefill", pre_flops, pre_bytes), ("decode", dec_flops,
-                                                                      dec_bytes)):
-        b, by = _bound(nbytes, flops)
-        bounds[name] = {"ms": b[by], "by": by, "flops": flops, "bytes": nbytes}
+    for name, flops, f32, nbytes in (("prefill", pre_flops, pre_f32, pre_bytes),
+                                     ("decode", dec_flops, dec_f32, dec_bytes)):
+        b, by = _bound(nbytes, flops, f32)
+        bounds[name] = {"ms": b[by], "by": by, "flops": flops, "f32_flops": f32,
+                        "bytes": nbytes}
     return bounds
 
 
 def attn_serve_launcher(fops, arch, B, S, gen):
     """The launcher's path at ``arch``'s published config: batch B, prompt S, ``gen`` tokens.
 
-    The prefill must launch flash_attention once a layer and decode never.
-    An MoE model's routing runs once more, recorded and untimed: the share
-    of its routed assignments dropped over capacity at prefill and decode.
+    S counts every prompt position: a vlm prompt's are its vision
+    embeddings and then text tokens, an audio prompt's are frames of K
+    codebook tokens.  The prefill must launch flash_attention once an
+    attention layer (a hybrid: once a shared-block invocation) and decode
+    never.  An MoE model's routing runs once more, recorded and untimed:
+    the share of its routed assignments dropped over capacity at prefill
+    and decode.
     """
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -2422,22 +2544,27 @@ def attn_serve_launcher(fops, arch, B, S, gen):
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    _require(n_params == cfg.param_count() + cfg.d_model,
-             f"{n_params} params, config says {cfg.param_count()}")
-    prompts = serve.make_prompts(cfg, B, S, 0, "cuda")
-    warm = serve.generate(model, prompts, 2)  # first calls: cuBLAS, allocator
+    _require(n_params == cfg.param_count() + _uncounted_params(cfg),
+             f"{n_params} params, config says {cfg.param_count()} + "
+             f"{_uncounted_params(cfg)} uncounted")
+    inputs = serve.make_inputs(cfg, B, S, 0, "cuda")
+    prompts, vision = inputs["tokens"], inputs.get("vision_embeds")
+    warm = serve.generate(model, prompts, 2, vision)  # first calls: cuBLAS, allocator
     cold_prefill_s = warm.prefill_s
     del warm
     torch.cuda.reset_peak_memory_stats()
     fops.flash_attention.launches = 0
-    run = serve.generate(model, prompts, gen)
+    run = serve.generate(model, prompts, gen, vision)
     launches = fops.flash_attention.launches
     peak = torch.cuda.max_memory_allocated()
-    _require(launches == cfg.num_layers, f"{arch}: serving launched flash_attention {launches}x")
-    _require(run.tokens.shape == (B, gen), f"tokens {tuple(run.tokens.shape)}")
+    _require(launches == _attention_layers(cfg),
+             f"{arch}: serving launched flash_attention {launches}x")
+    codebooks = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    _require(run.tokens.shape == (B, gen, *codebooks), f"tokens {tuple(run.tokens.shape)}")
     _require(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all()), "token out of range")
     for name, logits in (("prefill", run.prefill_logits), ("decode", run.logits)):
-        _require(logits.shape == (B, 1, cfg.vocab), f"{name} logits {tuple(logits.shape)}")
+        _require(logits.shape == (B, 1, *codebooks, cfg.vocab),
+                 f"{name} logits {tuple(logits.shape)}")
         _require(bool(torch.isfinite(logits.float()).all()), f"non-finite {name} logits")
     steps = gen - 1
     out = {
@@ -2490,9 +2617,48 @@ def attn_serve_engine(fops, model):
     _require(sorted(r.uid for r in finished) == list(range(8)), "engine lost a request")
     _require(all(len(r.output) == 16 for r in finished), "a request ended short")
     _require(all(0 <= t < cfg.vocab for r in finished for t in r.output), "token out of range")
-    _require(launches == cfg.num_layers * 8, f"engine launched flash_attention {launches}x")
+    _require(launches == _attention_layers(cfg) * 8,
+             f"engine launched flash_attention {launches}x")
     return {"wall_s": wall, "tok_per_s": 8 * 16 / wall, "launches": launches,
             "prompt_lens": [int(n) for n in lens]}
+
+
+def _print_launcher(r, tag):
+    b, gen = r["bounds"], r["gen"]
+    moe = (f"; routed assignments dropped over capacity: prefill {r['dropped_prefill']:.4f} "
+           f"(by layer {r['dropped_prefill_by_layer']}), decode {r['dropped_decode']:.4f} "
+           f"({r['experts_used_decode']:.1f} of {r['experts']} experts used a layer a decode "
+           f"step)"
+           if "dropped_prefill" in r else "")
+    print(
+        f"serve (launcher): {r['arch']} {r['layers']} layers bf16, {r['params']} params "
+        f"({r['param_bytes'] / 1e9:.2f} GB), init {r['init_s']:.2f} s; batch {r['batch']} x "
+        f"prompt {r['prompt']}: prefill {r['prefill_ms']:.1f} ms (cold "
+        f"{r['cold_prefill_ms']:.1f} ms; bound {b['prefill']['ms']:.2f} ms by "
+        f"{b['prefill']['by']}, {b['prefill']['ms'] / r['prefill_ms']:.3f} of it), decode "
+        f"{r['decode_ms_per_step']:.2f} ms/step (bound {b['decode']['ms']:.3f} ms by "
+        f"{b['decode']['by']}, {b['decode']['ms'] / r['decode_ms_per_step']:.3f} of it) = "
+        f"{r['decode_tok_per_s']:.1f} tok/s (bound {r['batch'] * 1e3 / b['decode']['ms']:.0f}) "
+        f"over {gen - 1} steps, peak {r['peak_gb']:.2f} GB; "
+        f"flash_attention launches {r['launches']}{moe}; stream 0 {r['sample']} {tag}"
+    )
+
+
+def _print_engine(arch, engine, tag):
+    print(
+        f"serve (engine): {arch}, 4 slots, 8 requests (prompts {engine['prompt_lens']}) "
+        f"x 16 tokens in {engine['wall_s']:.2f} s = {engine['tok_per_s']:.1f} tok/s; "
+        f"flash_attention launches {engine['launches']} {tag}"
+    )
+
+
+def _print_flash_row(row, what, tag):
+    print(
+        f"kernel timing: flash_attention {row['shape']} ({what}): {row['ms']:.3f} ms "
+        f"({row['flops'] / row['ms'] / 1e9:.0f} TFLOP/s, {row['bound_ms'] / row['ms']:.3f} of the "
+        f"bound), plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, bound "
+        f"{row['bound_ms']:.3f} ms by {row['bound_by']} {tag}"
+    )
 
 
 def attn_serve_phase(tag, fops, fref):
@@ -2502,30 +2668,10 @@ def attn_serve_phase(tag, fops, fref):
     for arch, B, S, gen in ATTN_SERVE:
         model, r = attn_serve_launcher(fops, arch, B, S, gen)
         launched[arch] = r
-        b = r["bounds"]
-        moe = (f"; routed assignments dropped over capacity: prefill {r['dropped_prefill']:.4f} "
-               f"(by layer {r['dropped_prefill_by_layer']}), decode {r['dropped_decode']:.4f} "
-               f"({r['experts_used_decode']:.1f} of {r['experts']} experts used a layer a decode "
-               f"step)"
-               if "dropped_prefill" in r else "")
-        print(
-            f"serve (launcher): {arch} {r['layers']} layers bf16, {r['params']} params "
-            f"({r['param_bytes'] / 1e9:.2f} GB), init {r['init_s']:.2f} s; batch {B} x prompt "
-            f"{S}: prefill {r['prefill_ms']:.1f} ms (cold {r['cold_prefill_ms']:.1f} ms; bound "
-            f"{b['prefill']['ms']:.2f} ms by {b['prefill']['by']}, "
-            f"{b['prefill']['ms'] / r['prefill_ms']:.3f} of it), decode {r['decode_ms_per_step']:.2f} ms/step (bound "
-            f"{b['decode']['ms']:.3f} ms by {b['decode']['by']}, "
-            f"{b['decode']['ms'] / r['decode_ms_per_step']:.3f} of it) = "
-            f"{r['decode_tok_per_s']:.1f} tok/s over {gen - 1} steps, peak {r['peak_gb']:.2f} GB; "
-            f"flash_attention launches {r['launches']}{moe}; stream 0 {r['sample']} {tag}"
-        )
+        _print_launcher(r, tag)
         if arch == ATTN_ENGINE_ARCH:
             engine = attn_serve_engine(fops, model)
-            print(
-                f"serve (engine): {arch}, 4 slots, 8 requests (prompts {engine['prompt_lens']}) "
-                f"x 16 tokens in {engine['wall_s']:.2f} s = {engine['tok_per_s']:.1f} tok/s; "
-                f"flash_attention launches {engine['launches']} {tag}"
-            )
+            _print_engine(arch, engine, tag)
         del model
         torch.cuda.empty_cache()
     lm = lm_slice_parity(ATTN_ENGINE_ARCH)
@@ -2536,16 +2682,45 @@ def attn_serve_phase(tag, fops, fref):
         f"{lm['differing_tokens']} differing tokens; engine = sequential on the card"
     )
     row = flash_timing(fops, fref, FLASH_SERVE_PATH)
-    print(
-        f"kernel timing: flash_attention {row['shape']} (Granite-8B's prefill): {row['ms']:.3f} ms "
-        f"({row['flops'] / row['ms'] / 1e9:.0f} TFLOP/s, {row['bound_ms'] / row['ms']:.3f} of the "
-        f"bound), plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms, bound "
-        f"{row['bound_ms']:.3f} ms by {row['bound_by']} {tag}"
-    )
+    _print_flash_row(row, "Granite-8B's prefill", tag)
     print(f"slice 11 (attention serving) in {time.perf_counter() - t0:.1f} s")
     launches = {arch: r["launches"] for arch, r in launched.items()}
     launches["engine"] = engine["launches"]
     return {"launches_serving": launches, "serving_row": row}
+
+
+def family_serve_phase(tag, fops, fref):
+    """Slice 12: hybrid, vlm and audio serving at Zamba2-2.7B, LLaVA-NeXT-Mistral-7B and
+    MusicGen-Large."""
+    t0 = time.perf_counter()
+    launched, engine = {}, None
+    for arch, B, S, gen in FAMILY_SERVE:
+        model, r = attn_serve_launcher(fops, arch, B, S, gen)
+        launched[arch] = r
+        _print_launcher(r, tag)
+        if arch == FAMILY_ENGINE_ARCH:
+            engine = attn_serve_engine(fops, model)
+            _print_engine(arch, engine, tag)
+        del model
+        torch.cuda.empty_cache()
+    for arch, (changes, prompt) in FAMILY_PARITY.items():
+        lm = lm_slice_parity(arch, changes, prompt)
+        cut = ", ".join(f"{k} {v}" for k, v in changes.items())
+        engine_note = "; engine = sequential on the card" if arch == FAMILY_ENGINE_ARCH else ""
+        print(
+            f"slice parity: {arch} full width, {cut}, float32, 2 prompts of {prompt}, card vs "
+            f"CPU: prefill logits {lm['prefill_logits']:.3e}, cache {lm['cache']:.3e} (tol "
+            f"{LM_TOL}); 4 decode steps: logits {lm['decode_logits']:.3e}, cache "
+            f"{lm['decode_cache']:.3e}, {lm['differing_tokens']} differing tokens{engine_note}"
+        )
+    rows = []
+    for (arch, *_), (B, Hq, Hkv, S, hd, window) in zip(FAMILY_SERVE, FLASH_FAMILY_PATHS):
+        rows.append(flash_timing(fops, fref, (B, Hq, Hkv, S, hd), window))
+        _print_flash_row(rows[-1], f"{arch}'s prefill", tag)
+    print(f"slice 12 (hybrid, vlm and audio serving) in {time.perf_counter() - t0:.1f} s")
+    launches = {arch: r["launches"] for arch, r in launched.items()}
+    launches[f"engine {FAMILY_ENGINE_ARCH}"] = engine["launches"]
+    return {"launches_serving": launches, "serving_rows": rows}
 
 
 def main():
@@ -2787,6 +2962,9 @@ def main():
     # ---- slice 11: dense and MoE serving (Granite-8B, OLMoE-1B-7B, Minitron-8B)
     attn_serving = attn_serve_phase(tag, fops, fref)
 
+    # ---- slice 12: hybrid, vlm and audio serving (Zamba2-2.7B, LLaVA-NeXT, MusicGen)
+    family_serving = family_serve_phase(tag, fops, fref)
+
     main_row = next(r for r in rows if (r["B"], r["direction"]) == (64, "forward"))
     scan_row = scan_rows[0]
     print(json.dumps({"kernels": [{
@@ -2841,16 +3019,17 @@ def main():
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
         "launches": lm_train_flash,
-        "launches_serving": attn_serving["launches_serving"],
+        "launches_serving": {**attn_serving["launches_serving"],
+                             **family_serving["launches_serving"]},
         "max_abs_err": max(e["abs"] for c, e in flash_worst.items() if "float32" in c),
         "max_abs_err_bf16": max(e["abs"] for c, e in flash_worst.items() if "bfloat16" in c),
         "max_row_err_bf16": max(e["row"] for c, e in flash_worst.items() if "bfloat16" in c),
         **{key: flash_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms", "shape")},
         "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-        "by_shape": [flash_row, attn_serving["serving_row"]],
+        "by_shape": [flash_row, attn_serving["serving_row"], *family_serving["serving_rows"]],
         "design": "bf16 head_dim 64/128: wgmma fed by a TMA/mbarrier ring, producer warpgroup; "
-                  "float32: SIMT",
+                  "bf16 head_dim 32/80: WMMA 16x16x16; float32: SIMT",
         "gpu": gpu,
     }, {
         "name": "fused_xent",

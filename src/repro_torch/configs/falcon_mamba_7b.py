@@ -10,6 +10,7 @@ CONFIG = ModelConfig(
     ssm_state=16,
     ssm_expand=2,
     ssm_conv=4,
+    ssm_chunk=128,
     mamba_version=1,
     source="arXiv:2410.05355",
 )
@@ -23,6 +24,7 @@ SMOKE = ModelConfig(
     ssm_state=16,
     ssm_expand=2,
     ssm_conv=4,
+    ssm_chunk=16,
     mamba_version=1,
     xent_chunk=16,
     dtype="float32",

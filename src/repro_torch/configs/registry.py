@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` resolution for the archs the port runs.
 
 `KNOWN_ARCH_IDS` is the JAX registry's list; `ARCH_IDS` the archs whose
-configs the port carries: the dense, moe and mamba1 ones that fit one card.
+configs the port carries: every one that fits one card (dense, moe,
+mamba1, the mamba2 hybrid, vlm and audio).
 llama3-405b and kimi-k2-1t-a32b are left out: their published configs
 shard over a mesh the port does not have.  A known arch that is not in
 `ARCH_IDS` raises `NotImplementedError` naming it; an unknown one raises
@@ -30,6 +31,9 @@ ARCH_IDS: Tuple[str, ...] = (
     "olmoe-1b-7b",
     "granite-8b",
     "falcon-mamba-7b",
+    "zamba2-2.7b",
+    "llava-next-mistral-7b",
+    "musicgen-large",
 )
 
 

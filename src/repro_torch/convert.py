@@ -230,7 +230,11 @@ def _stack_layers(tree):
 
 
 def lm_params_from_jax(params, cfg, device="cpu") -> LM:
-    """JAX LM params (``layers`` stacked along L) -> the port's `LM`."""
+    """JAX LM params (``layers`` stacked along L) -> the port's `LM`.
+
+    The other groups cross as they are: a hybrid's ``shared_attn`` block,
+    an audio model's (K, V, d) embeddings and (K, d, V) heads.
+    """
     return LM(_unstack_layers(params_from_jax(params, device), cfg.num_layers), cfg)
 
 
@@ -239,7 +243,8 @@ def lm_params_to_jax(model: LM):
     return params_to_jax(_stack_layers(model.tree()))
 
 
-_CACHE_KEYS = ({"pos", "kv"}, {"pos", "conv", "ssm"})
+# attention; mamba1 (or a hybrid without a shared block); a hybrid's mamba2 + shared K/V
+_CACHE_KEYS = ({"pos", "kv"}, {"pos", "conv", "ssm"}, {"pos", "conv", "ssm", "kv"})
 
 
 def _check_cache(cache):

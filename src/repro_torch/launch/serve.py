@@ -4,10 +4,14 @@
       --smoke --batch 4 --prompt-len 64 --gen 32 --device cpu
 
 The counterpart of `repro.launch.serve`, for every arch in `ARCH_IDS`
-(dense, moe and mamba1); an attention model's cache holds ``prompt_len +
-gen`` tokens a stream.  Weights are random, drawn from ``--seed``; so are
-the prompts.  It runs on CUDA unless ``--device`` says
-otherwise, and raises when there is no GPU and no ``--device``.
+(dense, moe, mamba1, the hybrid, vlm and audio); an attention cache holds
+``prompt_len + gen`` positions a stream.  ``--prompt-len`` counts every
+position of a prompt: a vlm prompt is its config's ``vision_tokens``
+vision embeddings and ``prompt_len - vision_tokens`` text tokens; an audio
+prompt is ``prompt_len`` frames of ``num_codebooks`` tokens.  Weights are
+random, drawn from ``--seed``; so are the prompts.  It runs on CUDA unless
+``--device`` says otherwise, and raises when there is no GPU and no
+``--device``.
 """
 from __future__ import annotations
 
@@ -27,22 +31,47 @@ from repro_torch.models import model as M
 class Generation:
     """Greedy tokens of a batch and what it took to make them."""
 
-    tokens: torch.Tensor          # (B, gen): the prefill's token, then decode's
-    prefill_logits: torch.Tensor  # (B, 1, V)
-    logits: torch.Tensor          # (B, 1, V), of the last step
+    tokens: torch.Tensor          # (B, gen), audio (B, gen, K): the prefill's, then decode's
+    prefill_logits: torch.Tensor  # (B, 1, V), audio (B, 1, K, V)
+    logits: torch.Tensor          # the same, of the last step
     prefill_s: float
     decode_s: float               # gen - 1 decode steps
 
 
-def make_prompts(cfg, batch, prompt_len, seed, device):
-    """Random prompts (batch, prompt_len) drawn with numpy from ``seed``."""
+def make_inputs(cfg, batch, prompt_len, seed, device) -> dict:
+    """A random prompt batch drawn with numpy from ``seed``, as the reference's launcher draws it.
+
+    ``tokens`` (batch, prompt_len), audio (batch, prompt_len, K); a vlm
+    batch has text ``tokens`` (batch, prompt_len - V) and then
+    ``vision_embeds`` (batch, V, d) in the model dtype, from the same
+    generator (serve.py:37-47).
+    """
     rng = np.random.default_rng(seed)
-    return torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)), device=device)
+    if cfg.arch_type == "audio":
+        shape = (batch, prompt_len, cfg.num_codebooks)
+    elif cfg.arch_type == "vlm":
+        if prompt_len <= cfg.vision_tokens:
+            raise ValueError(f"a {cfg.name} prompt of {prompt_len} positions leaves no text "
+                             f"after its {cfg.vision_tokens} vision tokens")
+        shape = (batch, prompt_len - cfg.vision_tokens)
+    else:
+        shape = (batch, prompt_len)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, shape), device=device)}
+    if cfg.arch_type == "vlm":
+        vision = rng.normal(size=(batch, cfg.vision_tokens, cfg.d_model))
+        out["vision_embeds"] = torch.as_tensor(vision, dtype=torch.float32).to(
+            device=device, dtype=cfg.activation_dtype)
+    return out
 
 
-def generate(model, prompts, gen: int) -> Generation:
-    """Prefill ``prompts`` (B, S) into a cache of S + gen, then ``gen - 1`` greedy decode steps."""
+def generate(model, prompts, gen: int, vision_embeds=None) -> Generation:
+    """Prefill ``prompts`` into a cache of S + gen positions, then ``gen - 1`` greedy steps.
+
+    ``prompts`` (B,T) tokens, audio (B,T,K); a vlm model also takes
+    ``vision_embeds`` (B,V,d), and then S = V + T.
+    """
     cuda = prompts.is_cuda
+    S = prompts.shape[1] + (0 if vision_embeds is None else vision_embeds.shape[1])
 
     def clock():
         if cuda:
@@ -50,9 +79,10 @@ def generate(model, prompts, gen: int) -> Generation:
         return time.perf_counter()
 
     t0 = clock()
-    prefill_logits, cache = M.prefill(model, prompts, max_len=prompts.shape[1] + gen)
+    prefill_logits, cache = M.prefill(model, prompts, max_len=S + gen,
+                                      vision_embeds=vision_embeds)
     t1 = clock()
-    tok = torch.argmax(prefill_logits, dim=-1)  # (B, 1)
+    tok = torch.argmax(prefill_logits, dim=-1)  # (B, 1), audio (B, 1, K)
     out, logits = [tok], prefill_logits
     for _ in range(gen - 1):
         logits, cache = M.decode_step(model, cache, tok)
@@ -77,10 +107,10 @@ def main(argv=None) -> Generation:
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = M.init_model(torch.Generator(device).manual_seed(args.seed), cfg)
-    prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed, device)
+    inputs = make_inputs(cfg, args.batch, args.prompt_len, args.seed, device)
 
-    B, S = prompts.shape
-    run = generate(model, prompts, args.gen)
+    B, S = args.batch, args.prompt_len
+    run = generate(model, inputs["tokens"], args.gen, inputs.get("vision_embeds"))
     print(f"prefill: {B}x{S} in {run.prefill_s * 1e3:.1f}ms")
     print(f"decode: {args.gen} tokens x {B} streams in {run.decode_s * 1e3:.1f}ms "
           f"({args.gen * B / max(run.decode_s, 1e-9):.0f} tok/s)")

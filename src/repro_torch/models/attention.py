@@ -11,7 +11,8 @@ query blocks (both its scanned sweep and the ``causal_skip`` one), which
 its ``use_pallas=False`` branch and its dense prefill call, kept so the
 tests hold the flash op's plain version to it.
 
-Decode: `init_kv_cache` lays out a cache of ``(L, B, C, n_kv, hd)`` with
+Decode: `init_kv_cache` lays out a cache of ``(L, B, C, n_kv, hd)`` (L
+layers, or a hybrid's shared-block invocations) with
 ``C = min(max_len, window)`` (a ring when windowed), `place_kv_in_cache`
 lays a prompt's K/V into it, and `attention_decode` attends one token a
 stream at per-stream positions.  Unlike the reference, which returns a
@@ -116,10 +117,15 @@ def attention_full(params: Params, x, positions, cfg):
 # ------------------------------------------------------------------ decode
 
 
-def init_kv_cache(cfg, batch, max_len, device):
-    """A zero KV cache: ``k`` and ``v`` (L, B, C, n_kv, hd), C = min(max_len, window)."""
+def init_kv_cache(cfg, batch, max_len, device, n_layers=None):
+    """A zero KV cache: ``k`` and ``v`` (L, B, C, n_kv, hd), C = min(max_len, window).
+
+    L is ``n_layers``, default ``cfg.num_layers``; a hybrid's cache has one
+    slot per invocation of its shared block.
+    """
     C = min(max_len, cfg.attn_window) if cfg.attn_window else max_len
-    shape = (cfg.num_layers, batch, C, cfg.num_kv_heads, cfg.head_dim)
+    L = cfg.num_layers if n_layers is None else n_layers
+    shape = (L, batch, C, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.activation_dtype, device=device),

@@ -3,9 +3,8 @@
 `ModelConfig` carries the fields that the ported code reads, under the JAX
 config's names and defaults; a field joins when code that reads it is
 ported.  ``use_pallas`` is not carried over: the port picks a kernel or its
-plain version by the device a tensor lies on.  The parameter counts cover
-the families the port runs (dense, moe and mamba1) and raise for the
-others.  The MoE router's loss weights join with MoE training.
+plain version by the device a tensor lies on.  The parameter counts follow
+the reference's formulas.  The MoE router's loss weights join with MoE training.
 """
 from __future__ import annotations
 
@@ -39,12 +38,22 @@ class ModelConfig:
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
+    ssm_head_dim: int = 64  # mamba2 head size
+    ssm_chunk: int = 128    # chunk length of mamba2's SSD
     mamba_version: int = 1
+
+    # --- hybrid (zamba2-style shared attention) ---
+    attn_every: int = 0  # apply the shared attention block after every N core layers
+    shared_attn: bool = False
 
     # --- attention variants ---
     attn_window: int = 0  # 0 = full causal; >0 = sliding window size
     rope_theta: float = 10000.0
     attn_chunk: int = 512  # query rows per block of the attention backward
+
+    # --- multimodal ---
+    num_codebooks: int = 0   # audio: EnCodec codebooks
+    vision_tokens: int = 0   # vlm: number of patch-embedding tokens prepended
 
     # --- numerics / training ---
     grad_accum: int = 1  # microbatches per train step
@@ -71,40 +80,67 @@ class ModelConfig:
         """Mamba's expanded width."""
         return self.ssm_expand * self.d_model
 
+    @property
+    def ssm_heads(self) -> int:
+        """Mamba2's heads: ``d_inner / ssm_head_dim``."""
+        return max(1, self.d_inner // self.ssm_head_dim)
+
+    @property
+    def num_attn_invocations(self) -> int:
+        """Shared-attention invocations in a hybrid stack."""
+        if not self.attn_every:
+            return 0
+        return self.num_layers // self.attn_every
+
     def _attn_params(self) -> int:
         hd, nq, nkv = self.head_dim, self.num_heads, self.num_kv_heads
         return self.d_model * hd * (nq + 2 * nkv) + nq * hd * self.d_model
+
+    def _shared_block_params(self) -> int:
+        """The hybrid's shared block: attention, SwiGLU MLP and two norms."""
+        return self._attn_params() + 3 * self.d_model * self.d_ff + 2 * self.d_model
 
     def param_count(self) -> int:
         """Approximate parameter count, by the JAX config's formula.
 
         Like the reference, the mamba1 count leaves out ``conv_b`` and
-        ``dt_proj_b`` (``2 * d_inner`` per layer), and no count has the
-        final norm's ``d_model`` scales.
+        ``dt_proj_b`` (``2 * d_inner`` per layer), the mamba2 count
+        ``conv_b``, ``dt_bias`` and ``norm_scale`` (``d_inner + 2 *
+        ssm_state``, ``ssm_heads`` and ``d_inner`` per layer), and no count
+        has the final norm's ``d_model`` scales.  The shared block of a
+        hybrid counts once; an audio model has a table and a head a codebook.
         """
         d, L, v = self.d_model, self.num_layers, self.vocab
-        if self.arch_type == "dense":
+        emb = 2 * v * d * (self.num_codebooks or 1)
+        if self.arch_type in ("dense", "vlm", "audio"):
             per_layer = self._attn_params() + 3 * d * self.d_ff + 2 * d
-            return int(2 * v * d + L * per_layer)
+            return int(emb + L * per_layer)
         if self.arch_type == "moe":
             moe = self.num_experts * 3 * d * self.moe_d_ff + d * self.num_experts
-            return int(2 * v * d + L * (self._attn_params() + moe + 2 * d))
-        if (self.arch_type, self.mamba_version) != ("ssm", 1):
-            raise NotImplementedError(
-                f"param_count: the {self.arch_type!r} family is not ported yet"
-            )
+            return int(emb + L * (self._attn_params() + moe + 2 * d))
         di, n = self.d_inner, self.ssm_state
-        dt_rank = max(1, d // 16)
+        if self.mamba_version == 1:
+            dt_rank = max(1, d // 16)
+            per_layer = (
+                d * 2 * di          # in_proj
+                + di * self.ssm_conv
+                + di * (dt_rank + 2 * n)  # x_proj
+                + dt_rank * di      # dt_proj
+                + di * n + di       # A_log, D
+                + di * d            # out_proj
+                + d
+            )
+            return int(emb + L * per_layer)
+        h = self.ssm_heads
         per_layer = (
-            d * 2 * di          # in_proj
-            + di * self.ssm_conv
-            + di * (dt_rank + 2 * n)  # x_proj
-            + dt_rank * di      # dt_proj
-            + di * n + di       # A_log, D
-            + di * d            # out_proj
+            d * (2 * di + 2 * n + h)  # in_proj (z, x, B, C, dt)
+            + (di + 2 * n) * self.ssm_conv
+            + h + h                   # A_log, D
+            + di * d
             + d
         )
-        return int(2 * v * d + L * per_layer)
+        hybrid = self.arch_type == "hybrid" and self.shared_attn
+        return int(emb + L * per_layer + (self._shared_block_params() if hybrid else 0))
 
     def active_param_count(self) -> int:
         """Parameters touched per token (an MoE layer activates top_k of num_experts)."""
@@ -116,5 +152,10 @@ class ModelConfig:
                    + self.num_layers * (self._attn_params() + moe_active + 2 * d))
 
     def flops_param_count(self) -> int:
-        """Parameters as counted by 6·N·D: no ported family shares weights."""
-        return self.active_param_count()
+        """Parameters as counted by 6·N·D: a weight-shared block (zamba2's
+        shared attention) counts once per invocation, so that 6·N·D is the
+        compute done rather than the parameters stored."""
+        n = self.active_param_count()
+        if self.arch_type == "hybrid" and self.shared_attn and self.attn_every:
+            n += self._shared_block_params() * (self.num_attn_invocations - 1)
+        return int(n)

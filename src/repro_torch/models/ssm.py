@@ -1,11 +1,15 @@
-"""Mamba1 block (counterpart of the Mamba1 half of `repro.models.ssm`).
+"""Mamba1 and Mamba2 blocks (counterpart of `repro.models.ssm`).
 
 `Mamba1` holds `init_mamba1`'s parameters under the JAX names and dtypes
 (``ssm.py:31-71``); `mamba1_forward` is the full-sequence (prefill) block,
 whose scan is `repro_torch.kernels.selective_scan` (the CUDA kernel on a
 GPU, its plain version on the CPU), and `mamba1_decode` the single-token
 step, which runs no kernel.  `selective_scan_chunked`, a JAX memory device
-for training, is not ported; Mamba2 waits for its own slice.
+for training, is not ported.
+
+`Mamba2` holds `init_mamba2`'s parameters (``ssm.py:205-245``);
+`mamba2_forward` runs the SSD over chunks (`ssd_chunked`, plain PyTorch as
+the reference's is jnp) and `mamba2_decode` one token.
 
 Like the reference, this Mamba1 has no RMS norms on B, C or delta, which
 the published Falcon-Mamba adds: the port computes what the JAX package
@@ -136,3 +140,164 @@ def mamba1_decode(m, x, conv_state, ssm_state, cfg):
     # y is cast to x's dtype before the gate (ssm.py:197)
     y = y[:, None].to(x.dtype) * F.silu(z)
     return y @ m.out_proj, (new_conv_state, h)
+
+
+# ================================================================= Mamba 2
+
+
+def init_mamba2(generator, cfg):
+    """A Mamba2 block's parameters: same names, shapes and dtypes as JAX.
+
+    The draws follow the reference's distributions, not its numbers:
+    ``dt_bias`` the inverse softplus of a log-uniform delta in [1e-3,
+    1e-1], ``A_log`` the log of a uniform in [1, 16), ``conv_b`` zero,
+    ``D`` and ``norm_scale`` one.
+    """
+    d, di, n, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    h = cfg.ssm_heads
+    dtype = cfg.activation_dtype
+    dev = generator.device
+    conv_dim = di + 2 * n
+    u = torch.rand(h, generator=generator, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+    A = 1.0 + 15.0 * torch.rand(h, generator=generator, device=dev)
+    return {
+        "in_proj": _trunc_normal(generator, (d, 2 * di + 2 * n + h), 1.0 / math.sqrt(d), dtype),
+        "conv_w": _trunc_normal(generator, (conv_dim, K), 1.0 / math.sqrt(K), torch.float32),
+        "conv_b": torch.zeros(conv_dim, dtype=torch.float32, device=dev),
+        "dt_bias": torch.log(torch.exp(dt) - 1.0),  # inverse softplus
+        "A_log": torch.log(A),
+        "D": torch.ones(h, dtype=torch.float32, device=dev),
+        "norm_scale": torch.ones(di, dtype=torch.float32, device=dev),
+        "out_proj": _trunc_normal(generator, (di, d), 1.0 / math.sqrt(di), dtype),
+    }
+
+
+class Mamba2(Params):
+    """One Mamba2 mixer: `init_mamba2`'s parameters plus the config."""
+
+    def __init__(self, tensors, cfg):
+        super().__init__(tensors, trainable=False)  # Mamba2 training is not ported
+        self.cfg = cfg
+
+    def forward(self, x):
+        """Full sequence; see `mamba2_forward`."""
+        return mamba2_forward(self, x, self.cfg)
+
+    def decode(self, x, conv_state, ssm_state):
+        """One token; see `mamba2_decode`."""
+        return mamba2_decode(self, x, conv_state, ssm_state, self.cfg)
+
+
+def ssd_chunked(x, dt, A, B, C, D, chunk: int):
+    """Mamba2's SSD over chunks of ``chunk`` steps (``ssm.py:248-301``).
+
+    x: (b,S,h,p); dt: (b,S,h) (after the softplus); A: (h,) negative; B,
+    C: (b,S,n); D: (h,).  Returns (y (b,S,h,p) in x's dtype, the final
+    state (b,h,n,p) float32).  Like the reference, each chunk is cast to
+    float32 and a ragged tail is padded with dt = 0 (decay 1, no input),
+    which leaves the state as it was.  The chunk-local terms of all chunks
+    are computed at once and only the carried state runs chunk by chunk;
+    the reference scans the whole chunk body.  Its intra-chunk decay
+    ``exp(cum_i - cum_j)`` is masked to j <= i after the exp, which
+    overflows to inf (and inf * 0 to NaN) above the diagonal once a
+    chunk's decay passes exp(88); here the exponent is masked first, so
+    the two agree wherever the reference is finite.
+    """
+    b, S, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:  # dt = 0 padding: decay exp(0) = 1 and zero input, the state unchanged
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    nc = (S + pad) // chunk
+    xc = x.float().reshape(b, nc, chunk, h, p)
+    dtc = dt.float().reshape(b, nc, chunk, h)
+    Bc = B.float().reshape(b, nc, chunk, n)
+    Cc = C.float().reshape(b, nc, chunk, n)
+
+    cum = torch.cumsum(dtc * A, dim=2).transpose(2, 3)  # (b,c,h,l), decreasing in l
+    # intra-chunk: M[i, j] = C_i . B_j * exp(cum_i - cum_j) for j <= i
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(~causal, -math.inf)
+    M = scores[:, :, None] * torch.exp(seg)  # (b,c,h,i,j)
+    xdt = (xc * dtc[..., None]).transpose(2, 3)  # (b,c,h,l,p)
+    y = (M @ xdt).transpose(2, 3)  # (b,c,l,h,p)
+    # each chunk's input to the state it hands on, then the carry chunk by chunk
+    decay_to_end = torch.exp(cum[..., -1:] - cum)  # (b,c,h,l)
+    contrib = torch.einsum("bcjn,bchjp,bchj->bchnp", Bc, xdt, decay_to_end)
+    chunk_decay = torch.exp(cum[..., -1])[..., None, None]  # (b,c,h,1,1)
+    state = torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = chunk_decay[:, c] * state + contrib[:, c]
+    # inter-chunk: the state entering each chunk, decayed to each position
+    y_inter = torch.einsum("bcin,bchnp,bchi->bcihp", Cc, torch.stack(entering, 1), torch.exp(cum))
+    y = y + y_inter + D[:, None] * xc
+    return y.reshape(b, nc * chunk, h, p)[:, :S].to(x.dtype), state
+
+
+def _rmsnorm_gated(x, z, scale, eps=1e-6):
+    """RMSNorm of ``x * silu(z)``: the gate in float32 cast to x's dtype first."""
+    x = x * F.silu(z.float()).to(x.dtype)
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x.float() * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def _split_mamba2_proj(proj, cfg):
+    # in_proj's output splits as [z (di), xBC (di + 2n), dt (h)] (ssm.py:311-316)
+    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    return proj.split([di, di + 2 * n, h], dim=-1)
+
+
+def mamba2_forward(m, x, cfg):
+    """Full-sequence (prefill) mamba2 block. x: (B,S,d).
+
+    Returns (y, (conv_state (B,K-1,di+2n), ssm_state (B,h,n,p))), both
+    float32: the decode cache after prefill.
+    """
+    B_, S, _ = x.shape
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xBC, dt = _split_mamba2_proj(x @ m.in_proj, cfg)
+    # the model-dtype conv plus the float32 bias, as mamba1's prefill; the
+    # state kept is the pre-conv xBC of the last K-1 positions (ssm.py:329-333)
+    conv_out = causal_depthwise_conv1d(xBC, m.conv_w.to(xBC.dtype)).float() + m.conv_b
+    new_conv_state = xBC[:, S - (cfg.ssm_conv - 1):].float()
+    xBC = F.silu(conv_out).to(x.dtype)
+
+    xs = xBC[..., :di].reshape(B_, S, h, p)
+    Bm, Cm = xBC[..., di:di + n], xBC[..., di + n:]
+    delta = _softplus(dt.float() + m.dt_bias)
+    A = -torch.exp(m.A_log)
+    y, state = ssd_chunked(xs, delta, A, Bm, Cm, m.D, cfg.ssm_chunk)
+    y = _rmsnorm_gated(y.reshape(B_, S, di), z, m.norm_scale)
+    return y @ m.out_proj, (new_conv_state, state)
+
+
+def mamba2_decode(m, x, conv_state, ssm_state, cfg):
+    """Single-token decode. x: (B,1,d); conv_state: (B,K-1,di+2n) float32;
+    ssm_state: (B,h,n,p) float32. Returns (y, (conv_state, ssm_state))."""
+    B_ = x.shape[0]
+    di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    z, xBC, dt = _split_mamba2_proj(x @ m.in_proj, cfg)
+    # float32 conv with the float32 weights, unlike prefill (ssm.py:359-362)
+    conv_out, new_conv_state = causal_depthwise_conv1d(xBC.float(), m.conv_w, state=conv_state)
+    xBC = F.silu(conv_out + m.conv_b).to(x.dtype)  # (B,1,di+2n)
+
+    xs = xBC[..., :di].reshape(B_, h, p).float()
+    Bm = xBC[:, 0, di:di + n].float()
+    Cm = xBC[:, 0, di + n:].float()
+    delta = _softplus(dt[:, 0].float() + m.dt_bias)  # (B,h)
+    A = -torch.exp(m.A_log)
+
+    dA = torch.exp(delta * A)
+    xdt = xs * delta[..., None]  # (B,h,p)
+    new_ssm = dA[..., None, None] * ssm_state + torch.einsum("bn,bhp->bhnp", Bm, xdt)
+    y = torch.einsum("bn,bhnp->bhp", Cm, new_ssm) + m.D[:, None] * xs
+    y = _rmsnorm_gated(y.reshape(B_, 1, di).to(x.dtype), z, m.norm_scale)
+    return y @ m.out_proj, (new_conv_state, new_ssm)

@@ -4,10 +4,13 @@
 
 Builds ``--arch``'s published config at full depth (random weights from a
 seed; any arch of `ARCH_IDS`: falcon-mamba-7b by default, granite-8b,
-minitron-8b, olmoe-1b-7b, internlm2-1.8b), warms up with one prefill and
-one decode step, then times one prefill of 4 prompts of 2048 tokens into
-a cache of 2048 + 8 tokens and 8 greedy decode steps with the host clock
-around synchronised work (the launcher's shapes in chip_smoke.py).  The
+minitron-8b, olmoe-1b-7b, internlm2-1.8b, zamba2-2.7b,
+llava-next-mistral-7b, musicgen-large), warms up with one prefill and one
+decode step, then times one prefill of 4 prompts of 2048 positions (a vlm
+prompt: 4096, its vision tokens and then text; an audio prompt: 2048
+frames of K codebooks) into a cache of 8 more and 8 greedy decode steps
+with the host clock around synchronised work (the launcher's shapes in
+chip_smoke.py).  The
 same prefill and steps run once more under `torch.profiler`, which gives
 the device's busy time per phase (the sum of its kernels' times), its
 idle share of the profiled wall, the device operations per phase and per
@@ -30,14 +33,14 @@ from repro_torch.breakdown import _device_summary, _timed
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.selective_scan import selective_scan
-from repro_torch.launch.serve import make_prompts
+from repro_torch.launch.serve import make_inputs
 from repro_torch.models import model as M
 
-BATCH, PROMPT_LEN, DECODE_STEPS = 4, 2048, 8
+BATCH, PROMPT_LEN, VLM_PROMPT_LEN, DECODE_STEPS = 4, 2048, 4096, 8
 # the hand kernel on each family's serving path: (wrapper, the CUDA kernel's name)
 PATH_KERNEL = {"mamba1": (selective_scan, "selective_scan_kernel"),
-               "dense": (flash_attention, "flash_attention_"),
-               "moe": (flash_attention, "flash_attention_")}
+               **{fam: (flash_attention, "flash_attention_")
+                  for fam in ("dense", "moe", "hybrid", "vlm", "audio")}}
 
 
 def _decode(model, cache, tok, steps):
@@ -66,16 +69,21 @@ def main(argv=None):
     cfg = get_config(args.arch)
     op, kernel = PATH_KERNEL[M.family(cfg)]
     model = M.init_model(torch.Generator(device).manual_seed(0), cfg)
-    prompts = make_prompts(cfg, BATCH, PROMPT_LEN, 0, device)
-    max_len = PROMPT_LEN + DECODE_STEPS
+    prompt_len = VLM_PROMPT_LEN if cfg.arch_type == "vlm" else PROMPT_LEN
+    inputs = make_inputs(cfg, BATCH, prompt_len, 0, device)
+    prompts, vision = inputs["tokens"], inputs.get("vision_embeds")
+    max_len = prompt_len + DECODE_STEPS
 
-    (logits, cache), cold_prefill_s = _timed(M.prefill, model, prompts, max_len)
+    def prefill():
+        return M.prefill(model, prompts, max_len, vision_embeds=vision)
+
+    (logits, cache), cold_prefill_s = _timed(prefill)
     tok = torch.argmax(logits, dim=-1)
     _, cold_step_s = _timed(_decode, model, cache, tok, 1)
-    (logits, cache), prefill_s = _timed(M.prefill, model, prompts, max_len)
+    (logits, cache), prefill_s = _timed(prefill)
     _, decode_s = _timed(_decode, model, cache, tok, DECODE_STEPS)
     phases = {}
-    (logits, cache), phases["prefill"] = _profiled(op, kernel, M.prefill, model, prompts, max_len)
+    (logits, cache), phases["prefill"] = _profiled(op, kernel, prefill)
     _, phases["decode"] = _profiled(op, kernel, _decode, model, cache, tok, DECODE_STEPS)
     phases["decode"]["kernel_launches_per_token_step"] = (
         phases["decode"]["kernel_launches"] / DECODE_STEPS
@@ -90,7 +98,7 @@ def main(argv=None):
         "arch": args.arch,
         "layers": cfg.num_layers,
         "batch": BATCH,
-        "prompt_len": PROMPT_LEN,
+        "prompt_len": prompt_len,
         "cold": {"prefill_s": cold_prefill_s, "decode_step_s": cold_step_s},
         "steady": {
             "prefill_s": prefill_s,

@@ -2,8 +2,8 @@
 
 A fixed pool of ``max_slots`` generation slots shares one decode cache,
 sized for ``prompt_capacity + max_new_tokens`` tokens a slot; requests are
-admitted into free slots (a per-request prefill lays the prompt's K/V, or
-its final states, into the slot's cache rows), and one `decode_step`
+admitted into free slots (a per-request prefill lays the prompt's K/V,
+its final states, or both for a hybrid, into the slot's cache rows), and one `decode_step`
 advances *all* live slots each tick.  Slots can be at different depths
 because the cache keeps per-stream positions.  Finished slots (EOS or
 ``max_new_tokens``) are freed and refilled from the queue.
@@ -47,11 +47,15 @@ class ServingEngine:
     ``model`` must lie on ``device`` (CUDA by default; raises without one
     unless the caller passes ``device="cpu"``).  Prompts hold at most
     ``prompt_capacity`` tokens; the cache holds ``prompt_capacity +
-    max_new_tokens`` a slot.
+    max_new_tokens`` a slot.  Token-only models: a vlm or audio model
+    raises `NotImplementedError`, as in the reference.
     """
 
     def __init__(self, model: M.LM, max_slots: int = 4, prompt_capacity: int = 64,
                  max_new_tokens: int = 64, device=None):
+        if model.cfg.arch_type in ("vlm", "audio"):
+            raise NotImplementedError("the serving engine covers token-only archs; "
+                                      f"{model.cfg.name} is {model.cfg.arch_type}")
         self.device = resolve_device(device)
         self.model = model
         self.max_slots = max_slots
@@ -78,7 +82,8 @@ class ServingEngine:
         """Copy a single-stream cache into pool slot ``slot``, in place.
 
         Cache leaves have the stream dim at index 1 (kv/conv/ssm are
-        stacked (L, B, ...)) except ``pos``, which is (B,).
+        stacked (L, B, ...), a hybrid's kv (invocations, B, ...)) except
+        ``pos``, which is (B,).
         """
         for pool, one in zip(tree_leaves(self.cache), tree_leaves(one_cache)):
             if pool.dim() == 1:  # pos (B,)

@@ -30,7 +30,11 @@ at 4 x 2048 and Minitron's 1 x 512); a smoke-sized Granite,
 Minitron and OLMoE prefill on the GPU launches it once a layer and decode
 never, with the logits, the KV cache and three decode steps equal to the
 CPU's at 1e-4, and the engine on the card equals sequential
-generation.  A seed-lane (3 lanes) rec-MAPPO and
+generation; so do the hybrid, vlm and audio ones (Zamba2's smoke config
+launching it once a shared-block invocation, its engine too), and the
+kernel is held at their prefill shapes (Zamba2's head_dim 80 with its
+window at least S and inside S, MusicGen's 32/32 at 64, LLaVA's 32/8 at
+4 x 4096 and a ragged 2,917).  A seed-lane (3 lanes) rec-MAPPO and
 IPPO update on the card must match the same update on the CPU at 1e-4,
 rec-MAPPO's with no more scan launches than one lane needs.  Every
 replay system's training iteration (act, write the table, update, a hard
@@ -408,6 +412,16 @@ def test_smoke_prefill_launches_the_scan_once_a_layer(cuda):
     (4, 32, 8, 2048, 128, True, 0),
     (4, 16, 16, 2048, 128, True, 0),
     (1, 32, 8, 512, 128, True, 0),
+    # the hybrid, vlm and audio prefills: Zamba2's shared block (32/32 heads, head_dim 80,
+    # window 4096: at least S, and a window of 1024 inside S) at an engine prompt and the
+    # launcher's 4 x 2048; MusicGen's 32/32 at hd 64; LLaVA's 32/8 at a ragged S (2,880
+    # vision + 37 text positions) and the launcher's 4 x 4096
+    (1, 32, 32, 37, 80, True, 4096),
+    (4, 32, 32, 2048, 80, True, 4096),
+    (1, 32, 32, 2048, 80, True, 1024),
+    (4, 32, 32, 2048, 64, True, 0),
+    (1, 32, 8, 2917, 128, True, 0),
+    (4, 32, 8, 4096, 128, True, 0),
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, B, Hq, Hkv, S, hd, causal, window,
                                                       dtype):
@@ -452,7 +466,41 @@ def test_smoke_attention_serving_launches_flash_once_a_layer(cuda, arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["granite-8b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "llava-next-mistral-7b", "musicgen-large"])
+def test_smoke_family_serving_launches_flash_once_an_attention_layer(cuda, arch):
+    """The hybrid, vlm and audio prefills launch the flash kernel once an attention layer
+    (the hybrid's shared-block invocations), decode none; card = CPU at 1e-4, every cache
+    leaf; the hybrid's prompt of 70 passes its window of 32 (a ring) over 5 SSD chunks."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_smoke_config(arch)
+    cpu = M.init_model(torch.Generator().manual_seed(0), cfg)
+    gpu = M.LM(tree_map(lambda t: t.to(cuda, copy=True), cpu.tree()), cfg)
+    inputs = serve.make_inputs(cfg, 2, 70, 1, "cpu")
+    tokens, vision = inputs["tokens"], inputs.get("vision_embeds")
+    flash_attention.launches = 0
+    lg, cg = M.prefill(gpu, tokens.to(cuda), max_len=74,
+                       vision_embeds=None if vision is None else vision.to(cuda))
+    layers = cfg.num_attn_invocations if cfg.arch_type == "hybrid" else cfg.num_layers
+    assert flash_attention.launches == layers
+    lc, cc = M.prefill(cpu, tokens, max_len=74, vision_embeds=vision)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    for x, y in zip(tree_leaves(cg), tree_leaves(cc)):
+        torch.testing.assert_close(x.cpu(), y, atol=1e-4, rtol=1e-4)
+    tok = lc.argmax(-1)
+    for _ in range(3):
+        lg, cg = M.decode_step(gpu, cg, tok.to(cuda))
+        lc, cc = M.decode_step(cpu, cc, tok)
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+        tok = lc.argmax(-1)
+    assert flash_attention.launches == layers  # decode runs no kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "olmoe-1b-7b", "zamba2-2.7b"])
 def test_engine_on_the_card_equals_sequential_generation(cuda, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import serve
@@ -469,7 +517,8 @@ def test_engine_on_the_card_equals_sequential_generation(cuda, arch):
         engine.submit(Request(uid=i, prompt=p, max_new_tokens=6))
     flash_attention.launches = 0
     got = {r.uid: r.output for r in engine.run_until_drained()}
-    assert flash_attention.launches == 3 * cfg.num_layers  # one prefill an admission
+    layers = cfg.num_attn_invocations if cfg.arch_type == "hybrid" else cfg.num_layers
+    assert flash_attention.launches == 3 * layers  # one prefill an admission
     for i, p in enumerate(prompts):
         one = torch.as_tensor(p[None], dtype=torch.long, device=cuda)
         assert got[i] == serve.generate(model, one, 6).tokens[0].tolist()

@@ -124,7 +124,7 @@ def test_launcher_main_on_granite(capsys):
 def test_launcher_greedy_tokens_match_the_jax_model(arch):
     """The launcher's generate on converted weights = JAX prefill (max_len S + gen) + decode."""
     jcfg, params, tcfg, model = _models(arch)
-    prompts = serve.make_prompts(tcfg, 2, 10, 3, "cpu")
+    prompts = serve.make_inputs(tcfg, 2, 10, 3, "cpu")["tokens"]
     run = serve.generate(model, prompts, 4)
     jlogits, jcache = jax.jit(lambda p, b: JM.prefill(p, b, jcfg, max_len=14))(
         params, {"tokens": jnp.asarray(prompts.numpy(), jnp.int32)})

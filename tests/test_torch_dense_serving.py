@@ -104,7 +104,8 @@ def test_published_sizes():
     assert get_config("granite-8b").param_count() == 8_254_685_184
     assert get_config("minitron-8b").param_count() == 9_882_042_368
     assert TM.PORTED == {"dense": ("training", "serving"), "moe": ("serving",),
-                         "mamba1": ("serving",)}
+                         "mamba1": ("serving",), "hybrid": ("serving",),
+                         "vlm": ("serving",), "audio": ("serving",)}
 
 
 # ------------------------------------------------------------- the cache

@@ -220,14 +220,18 @@ def test_one_train_step_matches(grad_accum):
 
 def test_other_families_do_not_train_yet():
     _, model = _model()
-    for arch_type in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match=arch_type):
-            TM.LM(model.tree(), dataclasses.replace(model.cfg, arch_type=arch_type))
+    for arch_type in ("vlm", "audio", "hybrid"):  # they serve, they do not train
+        cfg = dataclasses.replace(model.cfg, arch_type=arch_type)
+        with pytest.raises(NotImplementedError, match=f"training of the '{arch_type}' family"):
+            TM.forward_train(TM.LM(model.tree(), cfg), params_from_jax(_batch(model.cfg)))
+    with pytest.raises(NotImplementedError, match="'mamba2' family"):
+        TM.LM(model.tree(), dataclasses.replace(model.cfg, arch_type="ssm", mamba_version=2))
     moe = TM.init_model(torch.Generator().manual_seed(0), get_smoke_config("olmoe-1b-7b"))
     with pytest.raises(NotImplementedError, match="training of the 'moe' family"):
         TM.forward_train(moe, params_from_jax(_batch(model.cfg)))
     mamba = TM.init_model(torch.Generator().manual_seed(0), get_smoke_config("falcon-mamba-7b"))
     with pytest.raises(NotImplementedError, match="training of the 'mamba1' family"):
         TM.forward_train(mamba, params_from_jax(_batch(model.cfg)))
-    with pytest.raises(NotImplementedError, match="serving of the 'hybrid' family"):
-        TM.init_cache(dataclasses.replace(model.cfg, arch_type="hybrid"), 1, 4, "cpu")
+    with pytest.raises(NotImplementedError, match="serving of the 'mamba2' family"):
+        TM.init_cache(dataclasses.replace(model.cfg, arch_type="ssm", mamba_version=2), 1, 4,
+                      "cpu")

@@ -256,7 +256,7 @@ def test_launcher_main_on_the_cpu(capsys):
 def test_launcher_greedy_tokens_match_the_jax_model():
     """The launcher's generate on converted weights = JAX prefill + greedy decode."""
     jcfg, params, tcfg, model = _models()
-    prompts = serve.make_prompts(tcfg, 2, 10, 3, "cpu")
+    prompts = serve.make_inputs(tcfg, 2, 10, 3, "cpu")["tokens"]
     run = serve.generate(model, prompts, 4)
     jlogits, jcache = JM.prefill(params, {"tokens": jnp.asarray(prompts.numpy(), jnp.int32)},
                                  jcfg)
