@@ -253,6 +253,27 @@ and at a ragged 2,917):
 42. kernel timing: flash_attention at the three new prefill shapes, bf16
     causal, beside its plain version, SDPA and its bound.
 
+The throughput benchmark and the paper-figure harness, the thirteenth
+slice; recurrent_scan lies on the fused_recurrent rung (rec-IPPO with the
+linear core), no other rung runs it:
+
+43. bench: `repro_torch.bench.run_bench` for ippo and rec_ippo on
+    matrix_game at 256 envs and the launcher's smoke operating point, cut
+    in run length only (64 iterations, 2 seeds, 1 loop episode): every
+    rung's steps/s, each best-of rung's three repeats, the shard_map
+    rung's warm rank loop beside its call's wall (one NCCL rank);
+44. the document passes the port's `check_speed_schema` (and its file
+    `validate_path`), with a fused_recurrent block on rec_ippo and none
+    on ippo, and async_actors at 1 / 2 / 4;
+45. recurrent_scan launched over the bench what the fused rung's updates
+    need (a warm and 3 timed calls of iterations / rollout updates, each
+    a bootstrap unroll an agent and an actor and a critic unroll an agent
+    a minibatch, forward and backward), the rest of the phase adding
+    none;
+46. the figure harness: ``repro_torch.benchmarks.run --fast --only
+    speedup`` (MADQN on spread: the Block-1 loop, anakin at 1 / 16 / 64
+    envs, the eval loop against the batched evaluator, 4 seed lanes).
+
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -437,6 +458,12 @@ FAMILY_PARITY = {"zamba2-2.7b": (dict(num_layers=4, attn_every=2), 300),
 # the three prefills as flash runs them: (B, Hq, Hkv, S, hd, window)
 FLASH_FAMILY_PATHS = [(4, 32, 32, 2048, 80, 4096), (4, 32, 8, 4096, 128, 0),
                       (4, 32, 32, 2048, 64, 0)]
+# slice 13, the throughput benchmark at 256 envs and bench_marl's smoke operating point,
+# cut in run length to fit its ~150 s: iterations (bench_marl's 256; a multiple of the
+# smoke rollout of 32, the async unroll), seeds (8) and loop episodes (3)
+BENCH_SYSTEMS, BENCH_ENV, BENCH_ENVS = ("ippo", "rec_ippo"), "matrix_game", 256
+BENCH_ITERATIONS, BENCH_SEEDS, BENCH_LOOP_EPISODES = 64, 2, 1
+BENCH_OUT = "results/port/chip_smoke/BENCH_speed.json"  # git-ignored
 
 
 def _require(cond, msg):
@@ -2723,6 +2750,122 @@ def family_serve_phase(tag, fops, fref):
     return {"launches_serving": launches, "serving_rows": rows}
 
 
+def _fused_rung_launches(iterations):
+    """recurrent_scan launches the fused_recurrent rung predicts: a warm and 3 timed calls."""
+    from repro_torch.bench.throughput import _REPEATS
+    from repro_torch.systems import PPOConfig
+    from repro_torch.systems.registry import make_pair, smoke_overrides
+
+    overrides = smoke_overrides("rec_ippo")
+    _, system = make_pair("rec_ippo", BENCH_ENV, recurrent_core="linear", **overrides)
+    cfg, n = PPOConfig(**overrides), len(system.spec.agent_ids)
+    # a bootstrap critic unroll an agent, then an actor and a critic unroll an agent a
+    # minibatch, forward and backward
+    per_update = n + cfg.epochs * cfg.num_minibatches * n * 4
+    return (1 + _REPEATS) * (iterations // cfg.rollout_len) * per_update
+
+
+def _bench_scan_shapes():
+    """recurrent_scan's (T, B, H) on the fused rung: the bootstrap and the minibatch unrolls."""
+    from repro_torch.systems import PPOConfig
+    from repro_torch.systems.registry import smoke_overrides
+
+    cfg = PPOConfig(**smoke_overrides("rec_ippo"))
+    T, H = cfg.rollout_len, cfg.hidden_sizes[-1]
+    return [(T, BENCH_ENVS, H), (T, BENCH_ENVS // cfg.num_minibatches, H)]
+
+
+def _repeats(walls):
+    return "[" + ", ".join(f"{w:.4f}" for w in walls) + "] s"
+
+
+def bench_phase(tag, ops, ref):
+    """Slice 13: the scan at the fused rung's shapes, the throughput benchmark, the speedup figure."""
+    import contextlib
+    import io
+
+    from repro_torch.bench import schema
+    from repro_torch.bench.throughput import run_bench
+    from repro_torch.benchmarks import run as figures
+
+    t0 = time.perf_counter()
+    shapes = _bench_scan_shapes()
+    worst = kernel_parity(ops, ref, shapes)
+    print(f"kernel parity (bench): recurrent_scan forward {worst['forward']:.3e}, reverse "
+          f"{worst['reverse']:.3e}, chunked {worst['chunked']:.3e} (tol {FWD_TOL}), grads "
+          f"{worst['grad']:.3e} (tol {GRAD_TOL}) over {shapes} x resets {PATTERNS}")
+    timing = kernel_timing(ops, ref, shapes)
+    for r in timing:
+        print(f"kernel timing (bench): recurrent_scan {r['direction']} T={r['T']} B={r['B']} "
+              f"H={r['H']} (the fused rung's unroll): {r['device_ms'] * 1e3:.2f} us on the "
+              f"device, {r['ms'] * 1e3:.2f} us launched eagerly, plain "
+              f"{r['plain_ms'] * 1e3:.1f} us, bound {r['bound_ms'] * 1e3:.2f} us by "
+              f"{r['bound_by']} ({r['device_bound_share']:.3f} of it on the device) {tag}")
+    t_bench = time.perf_counter()
+    ops.linear_recurrent_scan.launches = 0
+    doc = run_bench(BENCH_SYSTEMS, [BENCH_ENV], iterations=BENCH_ITERATIONS, num_envs=BENCH_ENVS,
+                    num_seeds=BENCH_SEEDS, loop_episodes=BENCH_LOOP_EPISODES, out_path=BENCH_OUT,
+                    device="cuda")
+    fused_launches = ops.linear_recurrent_scan.launches
+    bench_s = time.perf_counter() - t_bench
+    problems = schema.check_speed_schema(doc) + schema.validate_path(BENCH_OUT)
+    _require(not problems, f"bench: the document fails the schema: {problems}")
+    cells = {c["system"]: c for c in doc["cells"]}
+    _require("fused_recurrent" in cells["rec_ippo"] and "fused_recurrent" not in cells["ippo"],
+             "bench: fused_recurrent must be on rec_ippo alone")
+    _require(all(c["async_actors"]["actor_counts"] == [1, 2, 4] for c in cells.values()),
+             "bench: async_actors must run at 1 / 2 / 4 actors")
+    want = _fused_rung_launches(BENCH_ITERATIONS)
+    _require(fused_launches == want, f"bench: recurrent_scan launched {fused_launches}x over "
+                                     f"the bench, the fused rung predicts {want}")
+    print(f"bench: run_bench {list(BENCH_SYSTEMS)} on {BENCH_ENV}, {BENCH_ENVS} envs x "
+          f"{BENCH_ITERATIONS} iterations (bench_marl: 256), {BENCH_SEEDS} seeds (8), "
+          f"{BENCH_LOOP_EPISODES} loop episode (3), smoke operating point, in {bench_s:.1f} s; "
+          f"passes check_speed_schema; recurrent_scan launches {fused_launches} (the fused "
+          f"rung's {want}) {tag}")
+    for name, c in cells.items():
+        r, sv, aa = c["runners"], c["seed_vectorization"], c["async_actors"]
+        sm = r["shard_map"]
+        print(f"bench: {name} {BENCH_ENV}: python loop {r['python_loop']['steps_per_sec']:.0f} "
+              f"env steps/s ({r['python_loop']['env_steps']} steps); anakin "
+              f"{r['anakin']['steps_per_sec']:.0f} (repeats {_repeats(r['anakin']['repeat_seconds'])}"
+              f", {r['anakin']['speedup_vs_loop']:.1f}x the loop); shard_map "
+              f"{sm['steps_per_sec']:.0f} ({sm['num_devices']} {sm['backend']} rank, warm loop "
+              f"{sm['wall_seconds']:.4f} s, call {sm['call_wall_seconds']:.2f} s) {tag}")
+        print(f"bench: {name} {BENCH_ENV}: {sv['num_seeds']} seeds serial "
+              f"{sv['serial_steps_per_sec']:.0f} env steps/s (repeats "
+              f"{_repeats(sv['serial_repeat_seconds'])}), as lanes "
+              f"{sv['vmapped_steps_per_sec']:.0f} (repeats {_repeats(sv['lanes_repeat_seconds'])})"
+              f", lanes over serial {sv['speedup']:.2f}x {tag}")
+        for row in aa["cells"]:
+            print(f"bench: {name} {BENCH_ENV}: async {row['num_actors']} actor(s), unroll "
+                  f"{aa['unroll_len']}, V-trace {aa['use_vtrace']}: {row['steps_per_sec']:.0f} env "
+                  f"steps/s (repeats {_repeats(row['repeat_seconds'])}) {tag}")
+        if "fused_recurrent" in c:
+            fr = c["fused_recurrent"]
+            print(f"bench: {name} {BENCH_ENV}: fused core ({fr['core']}, recurrent_scan) "
+                  f"{fr['fused_steps_per_sec']:.0f} env steps/s (repeats "
+                  f"{_repeats(fr['repeat_seconds'])}) against the {fr['reference_core']} core's "
+                  f"{fr['reference_steps_per_sec']:.0f}: {fr['speedup']:.2f}x {tag}")
+    t1 = time.perf_counter()
+    before = ops.linear_recurrent_scan.launches
+    csv = io.StringIO()
+    with contextlib.redirect_stdout(csv):
+        figures.main(["--fast", "--only", "speedup", "--device", "cuda"])
+    rows = [line.split(",", 2) for line in csv.getvalue().splitlines()[1:]]
+    _require(len(rows) == 7 and all(float(us) > 0 for _, us, _ in rows),
+             f"benchmarks.run speedup: rows {rows}")
+    _require(ops.linear_recurrent_scan.launches == before, "speedup ran recurrent_scan")
+    for name, us, derived in rows:
+        print(f"benchmarks.run --fast --only speedup: {name}, {float(us):.1f} us a step, "
+              f"{derived} {tag}")
+    print(f"benchmarks.run --fast --only speedup in {time.perf_counter() - t1:.1f} s")
+    print(f"slice 13 (bench) in {time.perf_counter() - t0:.1f} s")
+    return {"launches_bench": ops.linear_recurrent_scan.launches,
+            "launches_bench_fused_rung": fused_launches,
+            "max_abs_err_bench": max(worst.values()), "by_shape_bench": timing}
+
+
 def main():
     """Run every phase; any failure raises and exits non-zero."""
     if not torch.cuda.is_available():
@@ -2852,6 +2995,9 @@ def main():
     # ---- slice 10: telemetry, run records, train -> checkpoint -> serve / eval
     serving = serve_phase(tag, ops, gpu)
 
+    # ---- slice 13: the throughput benchmark and the speedup figure
+    benched = bench_phase(tag, ops, ref)
+
     # ---- slice 2: Falcon-Mamba-7B greedy serving
     scan_worst = scan_parity(sops, sref)
     for case, e in scan_worst.items():
@@ -2977,7 +3123,9 @@ def main():
         **{k: v for k, v in matrix.items() if k.startswith("launches")},
         **distributed,
         **serving,
-        "max_abs_err": max(*worst.values(), matrix["max_abs_err_matrix"]),
+        **benched,
+        "max_abs_err": max(*worst.values(), matrix["max_abs_err_matrix"],
+                           benched["max_abs_err_bench"]),
         "ms": main_row["ms"],
         "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],

@@ -464,7 +464,7 @@ def train_anakin(
 
 def run_executor(system: System, seed: int, rank: int, num_iterations: int, num_envs: int,
                  eval_episodes: int = 0, eval_num_envs=None, device=None, log_every: int = 0,
-                 log_callback=None) -> dict:
+                 log_callback=None, warmup: bool = False) -> dict:
     """One rank of the sharded runner, inside a world that has ``"data"`` bound.
 
     Rank ``rank`` runs anakin from seed ``seed + rank`` (the seed lane
@@ -479,7 +479,10 @@ def run_executor(system: System, seed: int, rank: int, num_iterations: int, num_
     episodes under its own final params, ``(world,)``; the seed is one
     draw from the rank's generator, as anakin's interleaved evals take).
     ``log_every`` / ``log_callback`` install anakin's telemetry tap on
-    this rank's loop.
+    this rank's loop.  With ``warmup`` the rank first runs the same
+    program once, untapped and untimed, so that ``wall_s`` is a warm loop:
+    a fresh process pays its first-use costs (cuBLAS handles, CUDA module
+    loads, the allocator's growth, kernel loads) in its first run.
     """
     from repro_torch.distributed import collective
 
@@ -487,6 +490,8 @@ def run_executor(system: System, seed: int, rank: int, num_iterations: int, num_
     program = make_anakin(system, num_iterations, num_envs, device=device, log_every=log_every,
                           log_callback=log_callback)
     sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
+    if warmup:
+        make_anakin(system, num_iterations, num_envs, device=device)(seed + rank)
     sync()
     t0 = time.perf_counter()
     st, metrics = program(seed + rank)
@@ -517,12 +522,13 @@ def _put(queue, iteration, updates, metrics):
 
 
 def _executor(rank, world_size, device, system_fn, seed, num_iterations, num_envs,
-              eval_episodes, eval_num_envs, log_every, queue=None):
+              eval_episodes, eval_num_envs, log_every, warmup, queue=None):
     """A spawned rank of `make_distributed`'s world: what the program returns."""
     del world_size
     tap = None if queue is None else functools.partial(_put, queue)
     out = run_executor(system_fn(), seed, rank, num_iterations, num_envs, eval_episodes,
-                       eval_num_envs, device, log_every=log_every, log_callback=tap)
+                       eval_num_envs, device, log_every=log_every, log_callback=tap,
+                       warmup=warmup)
     result = (out["params"], out["metrics"])
     return result + ((out["eval_return"],) if eval_episodes > 0 else ())
 
@@ -530,7 +536,7 @@ def _executor(rank, world_size, device, system_fn, seed, num_iterations, num_env
 def make_distributed(system_fn: Callable[[], System], num_iterations: int,
                      num_envs_per_device: int, num_executors: int, *, backend: str, device,
                      eval_episodes: int = 0, eval_num_envs=None, timeout_s: float = 900.0,
-                     log_every: int = 0, log_callback=None):
+                     log_every: int = 0, log_callback=None, warmup: bool = False):
     """Build the sharded program, a function of ``seed``, on ``torch.distributed``.
 
     ``system_fn`` builds the `System` with ``distributed_axis="data"``; it
@@ -553,6 +559,11 @@ def make_distributed(system_fn: Callable[[], System], num_iterations: int,
     ``log_callback(iteration, updates, metrics)`` sees every executor's
     own metrics, as the reference's tap sees each device shard's.  All of
     them have reached the callback by the time the program returns.
+
+    ``warmup`` runs every rank's program once before the timed one (see
+    `run_executor`): every call spawns fresh ranks, so no warm call
+    survives from one call to the next, and the bench's ``shard_map``
+    rung reads its rate from the ranks' warm loops.
     """
     from repro_torch.distributed import collective
 
@@ -563,7 +574,7 @@ def make_distributed(system_fn: Callable[[], System], num_iterations: int,
         results = collective.run_world(
             _executor, num_executors, backend, device,
             args=(system_fn, seed, num_iterations, num_envs_per_device, eval_episodes,
-                  eval_num_envs, log_every if tapping else 0),
+                  eval_num_envs, log_every if tapping else 0, warmup),
             timeout_s=timeout_s,
             on_message=(lambda msg: log_callback(*msg)) if tapping else None,
         )
