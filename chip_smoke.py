@@ -5,10 +5,10 @@
 Run from the root of a checkout.  It uses the port (``src/repro_torch``)
 only, never JAX, and exits non-zero on the first phase that fails:
 
-1. build: compile the four CUDA kernels (``recurrent_scan.cu``,
-   ``selective_scan.cu``, ``flash_attention.cu``, ``fused_xent.cu``) from
-   the checkout's sources into ``build/kernels/``, one nvcc each, in
-   parallel, and print each kernel's registers, shared memory and spills
+1. build: compile the CUDA kernels (``recurrent_scan.cu``,
+   ``selective_scan.cu``, ``selective_scan_bwd.cu``, ``flash_attention.cu``,
+   ``fused_xent.cu``) from the checkout's sources into ``build/kernels/``,
+   one nvcc each, in parallel, and print each kernel's registers, shared memory and spills
    from the compiler's ``-Xptxas -v`` report.
 
 rec-IPPO (linear core), the first slice:
@@ -274,6 +274,40 @@ linear core), no other rung runs it:
     speedup`` (MADQN on spread: the Block-1 loop, anakin at 1 / 16 / 64
     envs, the eval loop against the batched evaluator, 4 seed lanes).
 
+Training of the moe, mamba1, hybrid, vlm and audio families (OLMoE-1B-7B,
+Falcon-Mamba-7B, Zamba2-2.7B, LLaVA-NeXT-Mistral-7B, MusicGen-Large), the
+fourteenth slice; selective_scan (forward) and its new backward kernel lie
+on every Falcon-Mamba step, flash_attention on every attention layer and
+shared-block invocation, fused_xent on every loss (MusicGen: one a
+codebook):
+
+47. kernel parity: selective_scan_bwd against autograd of the plain
+    version with a nonzero h_final cotangent, at (2, 256, 1024, N) for N =
+    4, 8, 16, at S = 250 and 37 (not multiples of its 16-step chunk, di =
+    200 not one of its 32-lane block), float32 and bf16, and at (1, 512,
+    8192, 16) against `selective_scan_chunked`'s autograd: float32
+    gradients at 1e-4, bf16 at 2e-2; its time at Falcon-Mamba's training
+    shape (4, 2048, 8192, 16) bf16, both rulers as in 3, beside the plain
+    version and its bound;
+48. train: each family at its published width through
+    `repro_torch.launch.train.train`, bf16, remat, 3 steps of batch 4 x
+    2048 tokens (LLaVA: 2,880 vision embeddings + 1,216 text tokens;
+    MusicGen: 2048 frames of 4 codebooks), depth cut where 80 GB forces it
+    (OLMoE 8 of 16 layers, Falcon-Mamba 32 of 64, LLaVA 16 of 32; Zamba2's
+    54 and MusicGen's 48 whole): losses finite, every parameter changed,
+    selective_scan launched twice a mamba1 layer a step and its backward
+    once, flash_attention twice an attention layer or shared-block
+    invocation a step, fused_xent once a step (MusicGen 4 times), every
+    parameter finite (Zamba2's SSD gradient at full width among them); step
+    walls, positions/s, peak memory;
+49. slice parity: each family at full width cut to 2 layers (Zamba2 with
+    its shared block after the second; LLaVA with 64 vision embeddings),
+    float32, batch 1 x 256, one train step on the card and on the CPU: the
+    metrics and every parameter after it at 1e-4;
+50. checkpoints: `launch.train.main --smoke --ckpt-dir --ckpt-every 1` for
+    every arch of ``ARCH_IDS``, 2 steps: the last checkpoint restores to
+    the model's parameters exactly.
+
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -464,6 +498,37 @@ FLASH_FAMILY_PATHS = [(4, 32, 32, 2048, 80, 4096), (4, 32, 8, 4096, 128, 0),
 BENCH_SYSTEMS, BENCH_ENV, BENCH_ENVS = ("ippo", "rec_ippo"), "matrix_game", 256
 BENCH_ITERATIONS, BENCH_SEEDS, BENCH_LOOP_EPISODES = 64, 2, 1
 BENCH_OUT = "results/port/chip_smoke/BENCH_speed.json"  # git-ignored
+# slice 14, training of the moe, mamba1, hybrid, vlm and audio families.  The selective
+# scan's backward kernel against autograd of its plain version: (b, S, di, N) at N = 4,
+# 8, 16; S not a multiple of its 16-step chunk (250, 37) with di not a multiple of its
+# 32-lane block; and Falcon-Mamba's full di against `selective_scan_chunked`'s autograd,
+# where a step-by-step graph of the plain version would not pay; every case with a
+# nonzero h_final cotangent
+SCAN_BWD_SHAPES = [(2, 256, 1024, 4), (2, 256, 1024, 8), (2, 256, 1024, 16),
+                   (2, 250, 1024, 16), (3, 37, 200, 8)]
+SCAN_BWD_CHUNKED = (1, 512, 8192, 16)
+SCAN_BWD_PATH = (4, 2048, 8192, 16)  # Falcon-Mamba's training shape, timed in bf16
+SCAN_BWD_BF16_TOL = 2e-2  # bf16 x/B/C/dy: dx, dB and dC are rounded to bf16
+# (arch, config changes, text tokens a sequence) at the published widths, bf16, batch 4
+# x 3 steps through `launch.train.train`; depth cut where 80 GB forces it, at ~10
+# bytes a parameter of training state (bf16 params, grads and first moments, float32
+# second moments) plus activations: OLMoE 8 of 16 layers, Falcon-Mamba 32 of 64,
+# LLaVA-NeXT 16 of 32 (2,880 vision + 1,216 text = 4,096 positions); Zamba2 and
+# MusicGen (4 codebooks) whole
+FAMILY_TRAIN = [("olmoe-1b-7b", dict(num_layers=8), 2048),
+                ("falcon-mamba-7b", dict(num_layers=32), 2048),
+                ("zamba2-2.7b", {}, 2048),
+                ("llava-next-mistral-7b", dict(num_layers=16), 1216),
+                ("musicgen-large", {}, 2048)]
+FAMILY_TRAIN_STEPS, FAMILY_TRAIN_BATCH = 3, 4
+# card vs CPU, float32, batch 1 x 256 text tokens, one train step: full width cut to 2
+# layers (Zamba2: one shared-block invocation; LLaVA: 64 vision embeddings)
+FAMILY_TRAIN_PARITY = {"olmoe-1b-7b": dict(num_layers=2),
+                       "falcon-mamba-7b": dict(num_layers=2),
+                       "zamba2-2.7b": dict(num_layers=2, attn_every=2),
+                       "llava-next-mistral-7b": dict(num_layers=2, vision_tokens=64),
+                       "musicgen-large": dict(num_layers=2)}
+LM_CKPT_ROOT = "results/port/chip_smoke/lm_ckpt"  # git-ignored
 
 
 def _require(cond, msg):
@@ -2750,6 +2815,236 @@ def family_serve_phase(tag, fops, fref):
     return {"launches_serving": launches, "serving_rows": rows}
 
 
+def _scan_cotangents(b, S, di, N, dtype, seed):
+    """dy (b,S,di) in ``dtype`` and a nonzero dh_final (b,di,N) float32, on the card."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    return (torch.randn(b, S, di, generator=g, device="cuda").to(dtype),
+            torch.randn(b, di, N, generator=g, device="cuda"))
+
+
+def _chunked_vjp(t, dy, dh):
+    """The vjp by autograd through `selective_scan_chunked` (the plain version for large
+    shapes: each 128-step chunk under `torch.utils.checkpoint`)."""
+    from repro_torch.models.ssm import selective_scan_chunked
+
+    leaves = [x.detach().clone().requires_grad_() for x in t.values()]
+    y, h = selective_scan_chunked(*leaves, 128)
+    torch.autograd.backward((y, h), (dy, dh))
+    return [x.grad for x in leaves]
+
+
+def scan_bwd_parity(sops, sref):
+    """selective_scan_bwd against autograd of its plain version, float32 and bf16."""
+    names = ("dx", "ddelta", "dA", "dB", "dC", "dD")
+    cases = [(shape, dt) for shape in SCAN_BWD_SHAPES for dt in (torch.float32, torch.bfloat16)]
+    worst = {}
+    for (b, S, di, N), dtype in cases + [(SCAN_BWD_CHUNKED, torch.float32)]:
+        t = _scan_inputs(b, S, di, N, dtype, seed=S + N)
+        dy, dh = _scan_cotangents(b, S, di, N, dtype, seed=di + N)
+        got = sops.selective_scan_bwd(*t.values(), dy, dh)
+        chunked = (b, S, di, N) == SCAN_BWD_CHUNKED
+        want = (_chunked_vjp(t, dy, dh) if chunked
+                else sref.selective_scan_ref_vjp(*t.values(), dy, dh))
+        torch.cuda.synchronize()
+        case = (f"b={b} S={S} di={di} N={N} {str(dtype)[6:]}"
+                f"{' vs selective_scan_chunked' if chunked else ''}")
+        tol = SCAN_TOL if dtype == torch.float32 else SCAN_BWD_BF16_TOL
+        worst[case] = {}
+        for name, x, y, inp in zip(names, got, want, t.values()):
+            _require(x.dtype == y.dtype == inp.dtype, f"{name} dtype {x.dtype}: {case}")
+            _require(_within(x.float(), y.float(), tol),
+                     f"{name} differs by {_err(x.float(), y.float()):.3e}: {case}")
+            worst[case][name] = _err(x.float(), y.float())
+        del t, dy, dh, got, want
+    return worst
+
+
+def scan_bwd_timing(sops):
+    """The backward kernel at Falcon-Mamba's training shape, bf16: both rulers, the
+    plain version (`selective_scan_chunked`'s autograd) and the bound."""
+    b, S, di, N = SCAN_BWD_PATH
+    t = _scan_inputs(b, S, di, N, torch.bfloat16, seed=0)
+    dy, dh = _scan_cotangents(b, S, di, N, torch.bfloat16, seed=1)
+    args = (*t.values(), dy, dh)
+    ms = _time_ms(lambda: sops._launch_bwd(*args), reps=5, inner=2)
+    dev_ms = _device_ms(lambda: sops._launch_bwd(*args), inner=2, reps=5)
+    plain_ms = _time_ms(lambda: _chunked_vjp(t, dy, dh), reps=1, inner=1)
+    # each input read once, each output written once: x, dy, dx bf16 and delta,
+    # ddelta float32 a (b, t, d); B, C, dB, dC bf16 a (b, t, n); A, dA, dh_final
+    # float32 a (d, n) and (b, d, n); D, dD float32
+    nbytes = (b * S * di * (3 * 2 + 8) + 4 * b * S * N * 2 + 2 * di * N * 4 + b * di * N * 4
+              + 2 * di * 4)
+    exps = 2 * b * S * di * N  # at least: the states rebuilt going forward, g carried back
+    flops = b * S * di * (12 * N + 6)
+    bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+              "operations": max(exps / SFU_EXP_PER_S, flops / F32_FLOPS_PER_S) * 1e3}
+    bound_by = max(bounds, key=bounds.get)
+    return {"b": b, "S": S, "di": di, "N": N, "dtype": "bfloat16", "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bytes": nbytes, "exps": exps, "flops": flops,
+            "bytes_ms": bounds["bytes"], "exp_ms": exps / SFU_EXP_PER_S * 1e3,
+            "flop_ms": flops / F32_FLOPS_PER_S * 1e3, "bound_ms": bounds[bound_by],
+            "bound_by": bound_by, "bound_share": bounds[bound_by] / ms,
+            "device_bound_share": bounds[bound_by] / dev_ms}
+
+
+def _path_launches(cfg):
+    """Launches a training step should make: (selective_scan, selective_scan_bwd,
+    flash_attention, fused_xent).  Remat runs every layer's forward twice."""
+    fwd = 2 if cfg.remat else 1
+    mamba1 = cfg.num_layers if cfg.arch_type == "ssm" else 0
+    attention = (cfg.num_attn_invocations if cfg.arch_type == "hybrid"
+                 else 0 if cfg.arch_type == "ssm" else cfg.num_layers)
+    return fwd * mamba1, mamba1, fwd * attention, max(cfg.num_codebooks, 1)
+
+
+def family_train(sops, fops, xops, arch, changes, seq):
+    """``arch`` at its published width, cut by ``changes``: 3 steps of batch 4 through
+    `launch.train.train`, then every parameter compared with its initial value."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sops.selective_scan.launches = sops.selective_scan_bwd.launches = 0
+    fops.flash_attention.launches = xops.fused_softmax_xent.launches = 0
+    t0 = time.perf_counter()
+    run = train.train(cfg, FAMILY_TRAIN_STEPS, FAMILY_TRAIN_BATCH, seq, lr=3e-4, seed=0,
+                      log_every=FAMILY_TRAIN_STEPS, device="cuda")
+    wall = time.perf_counter() - t0
+    got = (sops.selective_scan.launches, sops.selective_scan_bwd.launches,
+           fops.flash_attention.launches, xops.fused_softmax_xent.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = tuple(n * FAMILY_TRAIN_STEPS for n in _path_launches(cfg))
+    _require(len(run.losses) == FAMILY_TRAIN_STEPS and all(np.isfinite(run.losses)),
+             f"{arch}: losses {run.losses}")
+    _require(got == want, f"{arch}: (selective_scan, its backward, flash_attention, "
+                          f"fused_xent) launched {got} in {FAMILY_TRAIN_STEPS} steps, not {want}")
+    init = M.init_model(torch.Generator("cuda").manual_seed(0), cfg)  # train's own init
+    leaves = list(zip(tree_leaves(run.model.tree()), tree_leaves(init.tree())))
+    unchanged = sum(bool(torch.equal(p, q)) for p, q in leaves)
+    _require(unchanged == 0, f"{arch}: {unchanged} of {len(leaves)} parameters did not change")
+    # a non-finite gradient would have spread through the clip's global norm to every leaf
+    _require(all(bool(torch.isfinite(p).all()) for p, _ in leaves), f"{arch}: non-finite params")
+    positions = seq + (cfg.vision_tokens if cfg.arch_type == "vlm" else 0)
+    step_s = statistics.median(run.step_s[1:])
+    tokens = FAMILY_TRAIN_BATCH * positions
+    out = {"arch": arch, "layers": cfg.num_layers, "params": sum(p.numel() for p, _ in leaves),
+           "positions": positions, "losses": run.losses, "step_s": run.step_s,
+           "step_s_median": step_s, "tokens_per_s": tokens / step_s,
+           "six_n_share": M.model_flops_per_token(cfg) * tokens / step_s / BF16_FLOPS_PER_S,
+           "peak_gb": peak / 1e9, "wall_s": wall, "launches": dict(zip(
+               ("selective_scan", "selective_scan_bwd", "flash_attention", "fused_xent"), got))}
+    del run, init, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_train_parity(arch, changes, seq=256):
+    """Full width cut by ``changes``, float32, batch 1 x ``seq`` text tokens: one train
+    step on the card and on the CPU from the same weights and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **changes)
+    gpu = M.init_model(torch.Generator("cuda").manual_seed(1), cfg)
+    cpu = M.LM(tree_map(lambda x: x.to("cpu", copy=True), gpu.tree()), cfg)
+    host = train.make_batch(cfg, SyntheticTokenDataset(cfg.vocab, seq, 1, seed=2),
+                            np.random.default_rng(2), "cpu")
+    results = []
+    for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        opt, step = make_train_step(cfg, 3e-4)
+        model, _, metrics = step(model, opt.init(model.tree()),
+                                 {k: v.to(dev) for k, v in host.items()})
+        results.append(({k: float(v) for k, v in metrics.items()},
+                        [p.cpu() for p in tree_leaves(model.tree())]))
+    (mg, pg), (mc, pc) = results
+    _require(sorted(mg) == sorted(mc), f"{arch}: metric keys {sorted(mg)} vs {sorted(mc)}")
+    for k in mc:
+        _require(abs(mg[k] - mc[k]) <= LM_TOL * (1 + abs(mc[k])),
+                 f"{arch}: {k} {mg[k]} on the card, {mc[k]} on the CPU")
+    for i, (x, y) in enumerate(zip(pg, pc)):
+        _require(_within(x, y, LM_TOL), f"{arch}: parameter leaf {i} differs by {_err(x, y)}")
+    return {"metrics": {k: abs(mg[k] - mc[k]) for k in mc},
+            "params": max(_err(x, y) for x, y in zip(pg, pc))}
+
+
+def lm_checkpoints():
+    """Every arch's smoke config, 2 steps through the launcher with a checkpoint a step;
+    the last restores to the model's parameters exactly."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    for arch in ARCH_IDS:
+        root = os.path.join(LM_CKPT_ROOT, arch)
+        run = train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "2", "--seq",
+                          "64", "--ckpt-dir", root, "--ckpt-every", "1", "--log-every", "2"])
+        _require(len(run.checkpoints) == 2, f"{arch}: checkpoints {run.checkpoints}")
+        tree = train.jax_layout(run.model)
+        back = restore_checkpoint(root, 2, tree)
+        for x, y in zip(tree_leaves(back), tree_leaves(tree)):
+            _require(x.dtype == y.dtype and torch.equal(x, y), f"{arch}: a restored leaf differs")
+    return list(ARCH_IDS)
+
+
+def lm_train_phase(tag, sops, sref, fops, xops):
+    """Slice 14: the selective scan's backward kernel, and training of the moe, mamba1,
+    hybrid, vlm and audio families at their published widths."""
+    t0 = time.perf_counter()
+    worst = scan_bwd_parity(sops, sref)
+    for case, e in worst.items():
+        tol = SCAN_TOL if "float32" in case else SCAN_BWD_BF16_TOL
+        print(f"kernel parity: selective_scan_bwd {case}: max abs err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in e.items()) + f" (tol {tol})")
+    row = scan_bwd_timing(sops)
+    print(
+        f"kernel timing: selective_scan_bwd b={row['b']} S={row['S']} di={row['di']} "
+        f"N={row['N']} bf16: {row['ms'] * 1e3:.2f} us a call launched eagerly "
+        f"({row['device_ms'] * 1e3:.2f} us on the device), plain (selective_scan_chunked's "
+        f"autograd) {row['plain_ms']:.1f} ms, bound {row['bound_ms'] * 1e3:.2f} us by "
+        f"{row['bound_by']} (bytes {row['bytes_ms'] * 1e3:.2f} us for {row['bytes']} B; exp "
+        f"{row['exp_ms'] * 1e3:.2f} us for {row['exps']} exp; flop {row['flop_ms'] * 1e3:.2f} "
+        f"us), {row['bound_share']:.3f} of the bound ({row['device_bound_share']:.3f} on the "
+        f"device) {tag}"
+    )
+    print(f"slice 14 kernel: parity and timing in {time.perf_counter() - t0:.1f} s")
+    trained = {}
+    for arch, changes, seq in FAMILY_TRAIN:
+        r = family_train(sops, fops, xops, arch, changes, seq)
+        trained[arch] = r
+        print(
+            f"train: {arch} {r['layers']} layers bf16 remat, {r['params']} params, batch "
+            f"{FAMILY_TRAIN_BATCH} x {r['positions']} positions: walls "
+            f"{[round(x, 3) for x in r['step_s']]} s; median after the first "
+            f"{r['step_s_median']:.3f} s = {r['tokens_per_s']:.0f} positions/s, 6N share "
+            f"{r['six_n_share']:.4f} of 989 TFLOP/s; peak {r['peak_gb']:.2f} GB; losses "
+            f"{[round(x, 4) for x in r['losses']]}; launches {json.dumps(r['launches'])}; "
+            f"every parameter changed; {r['wall_s']:.1f} s with init {tag}"
+        )
+    t1 = time.perf_counter()
+    parity = {}
+    for arch, changes in FAMILY_TRAIN_PARITY.items():
+        parity[arch] = e = family_train_parity(arch, changes)
+        cut = ", ".join(f"{k} {v}" for k, v in changes.items())
+        print(f"slice parity: {arch} full width, {cut}, float32, batch 1 x 256, one train step "
+              f"on the card vs the CPU: params {e['params']:.3e}, metrics "
+              + ", ".join(f"{k} {v:.3e}" for k, v in e["metrics"].items()) + f" (tol {LM_TOL})")
+    print(f"slice 14 parity in {time.perf_counter() - t1:.1f} s")
+    archs = lm_checkpoints()
+    print(f"checkpoints: launch.train --smoke --ckpt-dir --ckpt-every 1, 2 steps, for {archs}: "
+          f"the last restores to the parameters exactly")
+    print(f"slice 14 (training of every family) in {time.perf_counter() - t0:.1f} s")
+    return {"scan_bwd_worst": worst, "scan_bwd_row": row, "trained": trained, "parity": parity}
+
+
 def _fused_rung_launches(iterations):
     """recurrent_scan launches the fused_recurrent rung predicts: a warm and 3 timed calls."""
     from repro_torch.bench.throughput import _REPEATS
@@ -2888,7 +3183,8 @@ def main():
     print(f"gpu: {gpu}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
 
-    sources = ("recurrent_scan.cu", "selective_scan.cu", "flash_attention.cu", "fused_xent.cu")
+    sources = ("recurrent_scan.cu", "selective_scan.cu", "selective_scan_bwd.cu",
+               "flash_attention.cu", "fused_xent.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         libs = list(pool.map(build, sources))
@@ -3111,6 +3407,11 @@ def main():
     # ---- slice 12: hybrid, vlm and audio serving (Zamba2-2.7B, LLaVA-NeXT, MusicGen)
     family_serving = family_serve_phase(tag, fops, fref)
 
+    # ---- slice 14: training of the moe, mamba1, hybrid, vlm and audio families
+    lm = lm_train_phase(tag, sops, sref, fops, xops)
+    trained = {arch: r["launches"] for arch, r in lm["trained"].items()}
+    bwd_row = lm["scan_bwd_row"]
+
     main_row = next(r for r in rows if (r["B"], r["direction"]) == (64, "forward"))
     scan_row = scan_rows[0]
     print(json.dumps({"kernels": [{
@@ -3145,6 +3446,7 @@ def main():
         "replaces": "src/repro/kernels/selective_scan/kernel.py:72",
         "launches": launcher["launches"],
         "launches_engine": engine["launches"],
+        "launches_training": trained["falcon-mamba-7b"]["selective_scan"],
         "max_abs_err": max(max(e.values()) for c, e in scan_worst.items() if "float32" in c),
         "max_abs_err_bf16": {"y": max(e["y"] for c, e in scan_worst.items() if "bfloat16" in c),
                              "h_final": max(e["h_final"] for c, e in scan_worst.items()
@@ -3162,6 +3464,25 @@ def main():
         "by_shape": scan_rows,
         "gpu": gpu,
     }, {
+        "name": "selective_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "replaces": "src/repro/kernels/selective_scan/ops.py:60",
+        "launches": trained["falcon-mamba-7b"]["selective_scan_bwd"],
+        "max_abs_err": max(max(e.values()) for c, e in lm["scan_bwd_worst"].items()
+                           if "float32" in c),
+        "max_abs_err_bf16": max(max(e.values()) for c, e in lm["scan_bwd_worst"].items()
+                                if "bfloat16" in c),
+        **{key: bwd_row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "design": "a warp of 32 (b, d) lanes a block, N states a thread; the state entering "
+                  "every 16th step stored by a forward sweep, each chunk rebuilt into shared "
+                  "memory and walked back; dB/dC summed over the warp by a transposing "
+                  "butterfly, over blocks and dA/dD over b by a second kernel in a fixed order",
+        "shape": "b=4 S=2048 di=8192 N=16 bf16 (Falcon-Mamba's training shape)",
+        "by_shape": [bwd_row],
+        "gpu": gpu,
+    }, {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3169,6 +3490,7 @@ def main():
         "launches": lm_train_flash,
         "launches_serving": {**attn_serving["launches_serving"],
                              **family_serving["launches_serving"]},
+        "launches_training": {arch: n["flash_attention"] for arch, n in trained.items()},
         "max_abs_err": max(e["abs"] for c, e in flash_worst.items() if "float32" in c),
         "max_abs_err_bf16": max(e["abs"] for c, e in flash_worst.items() if "bfloat16" in c),
         "max_row_err_bf16": max(e["row"] for c, e in flash_worst.items() if "bfloat16" in c),
@@ -3186,6 +3508,7 @@ def main():
         "replaces": "src/repro/kernels/fused_xent/kernel.py:67",
         "launches": lm_train_xent,
         "combine_launches": lm_train_combine,
+        "launches_training": {arch: n["fused_xent"] for arch, n in trained.items()},
         "design": "bf16: wgmma fed by a TMA/mbarrier ring over vocab splits, then a combine "
                   "kernel; float32: SIMT",
         "max_abs_err": max(e["abs"] for c, e in xent_worst.items() if "float32" in c),

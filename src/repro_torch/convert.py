@@ -31,13 +31,15 @@ splits a tree whose leaves lead with a device (or vmapped rank) axis into
 one tree a rank: the sharded runner's per-rank train states.  V-trace's
 inputs are plain arrays and cross with `params_from_jax`.
 
-`lm_params_from_jax` / `lm_params_to_jax` carry a language model (dense,
-MoE or Mamba1): the JAX package stacks its layers along a leading L axis,
-the port keeps one module per layer.  `lm_opt_state_from_jax` /
+`lm_params_from_jax` / `lm_params_to_jax` carry a language model of any
+family (dense; MoE with its router and stacked experts; Mamba1; a hybrid's
+Mamba2 layers and ``shared_attn`` block; vlm; audio with its K tables and
+K heads): the JAX package stacks its layers along a leading L axis, the
+port keeps one module per layer.  `lm_opt_state_from_jax` /
 `lm_opt_state_to_jax` carry the LM optimizer state of
 `launch.steps.make_optimizer` (the ``chain`` tuple of ``()`` and
 ``AdamState(count, mu, nu)``, with ``mu`` and ``nu`` shaped like the
-parameters) the same way.  A decode cache (``pos`` beside ``kv``'s ``k``
+parameters, every leaf of every family) the same way.  A decode cache (``pos`` beside ``kv``'s ``k``
 and ``v``, or Mamba1's ``conv`` and ``ssm``) is stacked along L in both
 packages, so `lm_cache_from_jax` / `lm_cache_to_jax` carry it leaf by leaf
 as it is.

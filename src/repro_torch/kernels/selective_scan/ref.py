@@ -1,10 +1,12 @@
-"""Plain-PyTorch Mamba1 selective scan: the kernel's oracle and CPU path.
+"""Plain-PyTorch Mamba1 selective scan: the kernels' oracle and CPU path.
 
 The counterpart of ``repro.kernels.selective_scan.ref.selective_scan_ref``
 with the same casts (``ref.py:14-30``): every input is taken to float32, the
 recurrence runs in float32, ``y`` goes back to ``x``'s dtype and the final
-state stays float32.  The op wrapper runs it for tensors on the CPU, and
-``chip_smoke.py`` holds the CUDA kernel against it on the card.
+state stays float32.  `selective_scan_ref_vjp` is autograd through it, the
+JAX op's backward (``jax.vjp`` of the oracle, ``ops.py:60-62``).  The op
+wrappers run both for tensors on the CPU, and ``chip_smoke.py`` holds the
+CUDA kernels against them on the card.
 """
 from __future__ import annotations
 
@@ -31,3 +33,15 @@ def selective_scan_ref(x, delta, A, B, C, D):
         ys[:, t] = torch.einsum("bdn,bn->bd", h, C[:, t])
     y = ys + x32 * D
     return y.to(x.dtype), h
+
+
+def selective_scan_ref_vjp(x, delta, A, B, C, D, dy, dh_final):
+    """The vjp of `selective_scan_ref` for cotangents ``dy`` (of y) and ``dh_final``.
+
+    Returns (dx, ddelta, dA, dB, dC, dD), each in its input's dtype.  It
+    runs the scan again under autograd, as ``jax.vjp`` of the oracle does.
+    """
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, delta, A, B, C, D)]
+        y, h = selective_scan_ref(*leaves)
+        return torch.autograd.grad((y, h), leaves, (dy, dh_final))

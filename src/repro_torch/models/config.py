@@ -4,7 +4,7 @@
 config's names and defaults; a field joins when code that reads it is
 ported.  ``use_pallas`` is not carried over: the port picks a kernel or its
 plain version by the device a tensor lies on.  The parameter counts follow
-the reference's formulas.  The MoE router's loss weights join with MoE training.
+the reference's formulas.
 """
 from __future__ import annotations
 
@@ -33,6 +33,8 @@ class ModelConfig:
     moe_d_ff: int = 0  # per-expert hidden dim; 0 -> d_ff
     capacity_factor: float = 1.25
     moe_group_size: int = 512  # tokens per dispatch group
+    router_aux_weight: float = 0.01  # the load-balance loss's weight in the training loss
+    router_z_weight: float = 1e-3  # the router z-loss's
 
     # --- SSM (mamba) ---
     ssm_state: int = 0

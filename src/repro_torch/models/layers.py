@@ -21,17 +21,12 @@ def _detach(p):
 
 
 class Params(nn.Module):
-    """A group of named parameters under the JAX pytree's keys.
+    """A group of named parameters under the JAX pytree's keys."""
 
-    ``trainable=False`` freezes them (``requires_grad=False``), for a
-    family that the port serves but does not train, so that no autograd
-    graph is built.
-    """
-
-    def __init__(self, tensors, trainable=True):
+    def __init__(self, tensors):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=trainable))
+            self.register_parameter(name, nn.Parameter(t))
 
     def tree(self, leaf=_detach):
         """The group as a dict, the JAX pytree's leaf layout.

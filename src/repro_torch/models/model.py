@@ -1,24 +1,23 @@
 """LM backbone (counterpart of `repro.models.model`).
 
-`PORTED` says what the port runs of each family: ``dense`` trains and
-serves; ``moe``, ``mamba1``, ``hybrid`` (zamba2: mamba2 layers and one
-shared attention block), ``vlm`` and ``audio`` serve.  `_require_ported`
-is the one gate, and other families (or another use of these) raise
-`NotImplementedError` naming theirs.  vlm and audio run the dense layers
-(`core_kind`): a vlm prompt puts its precomputed vision embeddings ahead
-of the text, an audio model sums K codebook embeddings a position and has
-a head a codebook.
+`PORTED` says what the port runs of each family: ``dense``, ``moe``,
+``mamba1``, ``hybrid`` (zamba2: mamba2 layers and one shared attention
+block), ``vlm`` and ``audio`` train and serve.  `_require_ported` is the
+one gate, and other families (a pure-SSM ``mamba2``, which no config of
+the repo uses) raise `NotImplementedError` naming theirs.  vlm and audio
+run the dense layers (`core_kind`): a vlm prompt puts its precomputed
+vision embeddings ahead of the text, an audio model sums K codebook
+embeddings a position and has a head a codebook.
 
   init_model(generator, cfg)                  -> LM (an nn.Module)
-  forward_train(model, batch)                 -> (loss, metrics), dense
+  forward_train(model, batch)                 -> (loss, metrics)
   init_cache(cfg, batch, max_len, device)     -> cache dict
   prefill(model, tokens, max_len=None, *, vision_embeds=None)
                                               -> (last-position logits, cache)
   decode_step(model, cache, tokens)           -> (logits, cache)
 
-A dense model's parameters are trainable, the other families' frozen;
-`prefill` and `decode_step` run under `torch.no_grad` either way, so
-serving builds no autograd graph.
+Every parameter is trainable; `prefill` and `decode_step` run under
+`torch.no_grad`, so serving builds no autograd graph.
 
 Where the JAX package stacks the layers along a leading L dim and scans
 them, the port keeps one module per layer in an `nn.ModuleList` and loops;
@@ -64,8 +63,8 @@ from repro_torch.models.layers import (
 from repro_torch.models.ssm import Mamba1, Mamba2, init_mamba1, init_mamba2
 
 # family -> what the port runs of it
-PORTED = {"dense": ("training", "serving"), "moe": ("serving",), "mamba1": ("serving",),
-          "hybrid": ("serving",), "vlm": ("serving",), "audio": ("serving",)}
+PORTED = {fam: ("training", "serving")
+          for fam in ("dense", "moe", "mamba1", "hybrid", "vlm", "audio")}
 
 
 def family(cfg: ModelConfig) -> str:
@@ -98,18 +97,13 @@ def _require_ported(cfg: ModelConfig, what: str | None = None):
         )
 
 
-def _trains(cfg: ModelConfig) -> bool:
-    return "training" in PORTED[family(cfg)]
-
-
 class Block(nn.Module):
     """One layer, or the hybrid's shared block, under the JAX pytree's keys.
 
     dense (and vlm, audio): ``norm1``, ``attn``, ``norm2``, ``mlp``; moe:
     ``norm1``, ``attn``, ``norm2``, ``moe``; mamba1 and mamba2: ``norm``
     and the ``mamba`` mixer (`Mamba1` or `Mamba2`); the shared block:
-    ``norm1``, ``attn``, ``norm2``, ``mlp``.  Trainable only in the dense
-    family.
+    ``norm1``, ``attn``, ``norm2``, ``mlp``.
     """
 
     def __init__(self, tree, cfg: ModelConfig):
@@ -120,7 +114,7 @@ class Block(nn.Module):
                 mixer = Mamba1 if core_kind(cfg) == "mamba1" else Mamba2
                 self.add_module(name, mixer(group, cfg))
             else:
-                self.add_module(name, Params(group, trainable=_trains(cfg)))
+                self.add_module(name, Params(group))
 
     def tree(self, leaf=_detach):
         """The layer's parameters under the JAX pytree's keys."""
@@ -137,7 +131,7 @@ class LM(nn.Module):
         self.cfg = cfg
         self.layers = nn.ModuleList(Block(t, cfg) for t in tree["layers"])
         for name in ("embed", "unembed", "final_norm"):
-            self.add_module(name, Params(tree[name], _trains(cfg)))
+            self.add_module(name, Params(tree[name]))
         self.shared_attn = Block(tree["shared_attn"], cfg) if "shared_attn" in tree else None
 
     def tree(self, leaf=_detach):
@@ -236,41 +230,101 @@ def _logits(model: LM, h):
 
 
 def _dense_layer(layer: Block, h, positions, cfg: ModelConfig):
-    """One dense layer: pre-norm attention, then the pre-norm SwiGLU MLP."""
+    """One dense layer (or the shared block): pre-norm attention, then the
+    pre-norm SwiGLU MLP."""
     h = h + attention_full(layer.attn, rmsnorm(layer.norm1.scale, h), positions, cfg)
     return h + mlp(layer.mlp, rmsnorm(layer.norm2.scale, h))
 
 
-def _run_layers_train(model: LM, h):
-    """All layers over the whole sequence (model.py:259-322, dense branch).
+def _moe_layer(layer: Block, h, positions, cfg: ModelConfig):
+    """One MoE layer: pre-norm attention, then the pre-norm MoE FFN.
 
-    With ``cfg.remat`` each layer is a `torch.utils.checkpoint` (the
-    reference's `jax.checkpoint` of the scan body): only its input is kept,
-    and the backward runs its forward again.
+    Returns (h, aux_loss, z_loss).
     """
-    cfg = model.cfg
-    positions = torch.arange(h.shape[1], device=h.device)
-    for layer in model.layers:
-        if cfg.remat:
-            h = checkpoint(_dense_layer, layer, h, positions, cfg, use_reentrant=False)
-        else:
-            h = _dense_layer(layer, h, positions, cfg)
+    h = h + attention_full(layer.attn, rmsnorm(layer.norm1.scale, h), positions, cfg)
+    y, aux, z = moe_lib.moe_ffn(layer.moe, rmsnorm(layer.norm2.scale, h), cfg)
+    return h + y, aux, z
+
+
+def _mamba_layer(layer: Block, h, positions, cfg: ModelConfig, shared):
+    """One mamba1 or mamba2 layer, then ``shared`` (the hybrid's shared block
+    at this layer, or None)."""
+    y, _ = layer.mamba(rmsnorm(layer.norm.scale, h))
+    h = h + y
+    if shared is not None:
+        h = _dense_layer(shared, h, positions, cfg)
     return h
 
 
-def forward_train(model: LM, batch):
-    """Mean next-token loss. batch keys: ``tokens``, ``labels`` (B,S) int.
+def _run_layers_train(model: LM, h):
+    """All layers over the whole sequence (model.py:259-322): (h, (aux, z)).
 
-    Returns (loss, metrics dict).  The dense family only: the reference's
-    moe, vlm and audio branches and SSM training are not ported.
+    ``aux`` and ``z`` are the MoE router's losses summed over the layers
+    and divided by L (zero in the other families).  A hybrid runs its shared
+    block after every ``attn_every``-th layer; its parameters are one set,
+    so their gradients sum over the invocations.  With ``cfg.remat`` each
+    layer, with the shared block it runs, is one `torch.utils.checkpoint`
+    (the reference's `jax.checkpoint` of the scan body): only its input is
+    kept, and the backward runs its forward again.
+    """
+    cfg = model.cfg
+    positions = torch.arange(h.shape[1], device=h.device)
+    kind = core_kind(cfg)
+    aux = z = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def run(fn, *args):
+        if cfg.remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    for idx, layer in enumerate(model.layers):
+        if kind == "dense":
+            h = run(_dense_layer, layer, h, positions, cfg)
+        elif kind == "moe":
+            h, a, zl = run(_moe_layer, layer, h, positions, cfg)
+            aux, z = aux + a, z + zl
+        else:
+            runs_shared = (model.shared_attn is not None and cfg.attn_every
+                           and (idx + 1) % cfg.attn_every == 0)
+            h = run(_mamba_layer, layer, h, positions, cfg,
+                    model.shared_attn if runs_shared else None)
+    L = len(model.layers)
+    return h, (aux / L, z / L)
+
+
+def forward_train(model: LM, batch):
+    """Next-token loss (model.py:325-358). Returns (loss, metrics dict).
+
+    batch keys: ``tokens`` and ``labels``, (B,S) int, or (B,S,K) for audio;
+    a vlm batch also ``vision_embeds`` (B,V,d), which go ahead of the text,
+    and the loss reads the T text predictions from positions V-1 ..
+    V+T-2.  An audio model's loss is the mean of its K codebooks' losses,
+    each against its own head; an MoE model's adds
+    ``router_aux_weight * aux + router_z_weight * z`` and reports both.
+    The metric keys are the reference's.
     """
     cfg = model.cfg
     _require_ported(cfg, "training")
-    h = _embed_tokens(model, batch["tokens"])
-    h = _run_layers_train(model, h)
+    vision = batch["vision_embeds"] if cfg.arch_type == "vlm" else None
+    h = _embed_tokens(model, batch["tokens"], vision)
+    h, (aux, z) = _run_layers_train(model, h)
     h = rmsnorm(model.final_norm.scale, h)
-    lm_loss = chunked_softmax_xent(h, model.unembed.w, batch["labels"], cfg.xent_chunk)
-    return lm_loss, {"lm_loss": lm_loss, "loss": lm_loss}
+    w, labels = model.unembed.w, batch["labels"]
+    if vision is not None:
+        V, T = vision.shape[1], labels.shape[1]
+        h = h[:, V - 1:V - 1 + T]
+    if cfg.num_codebooks:
+        losses = [chunked_softmax_xent(h, w[k], labels[..., k].contiguous(), cfg.xent_chunk)
+                  for k in range(cfg.num_codebooks)]
+        lm_loss = torch.stack(losses).mean()
+    else:
+        lm_loss = chunked_softmax_xent(h, w, labels, cfg.xent_chunk)
+    loss, metrics = lm_loss, {"lm_loss": lm_loss}
+    if cfg.arch_type == "moe":
+        loss = loss + cfg.router_aux_weight * aux + cfg.router_z_weight * z
+        metrics.update(router_aux=aux, router_z=z)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def model_flops_per_token(cfg: ModelConfig) -> float:

@@ -12,8 +12,10 @@ to one.  The dispatch, expert and combine products are plain einsums, as
 in the reference, which computes them outside any Pallas kernel.
 
 Returns the Switch load-balance loss and the router z-loss beside the
-output, as the reference does; the weights that scale them join with MoE
-training, which is not ported.
+output, as the reference does; `model.forward_train` scales them by
+``cfg.router_aux_weight`` and ``cfg.router_z_weight``.  Training
+differentiates through the router logits, the renormalised gates in
+``combine`` (the scatter's source) and the expert weights.
 """
 from __future__ import annotations
 

@@ -1,15 +1,21 @@
 """Mamba1 and Mamba2 blocks (counterpart of `repro.models.ssm`).
 
 `Mamba1` holds `init_mamba1`'s parameters under the JAX names and dtypes
-(``ssm.py:31-71``); `mamba1_forward` is the full-sequence (prefill) block,
-whose scan is `repro_torch.kernels.selective_scan` (the CUDA kernel on a
-GPU, its plain version on the CPU), and `mamba1_decode` the single-token
-step, which runs no kernel.  `selective_scan_chunked`, a JAX memory device
-for training, is not ported.
+(``ssm.py:31-71``); `mamba1_forward` is the full-sequence block, for
+training and prefill, whose scan is `repro_torch.kernels.selective_scan`
+(the CUDA kernels on a GPU, forward and backward; the plain version on the
+CPU), and `mamba1_decode` the single-token step, which runs no kernel.
+`selective_scan_chunked` is the reference's memory device for training
+(``ssm.py:74-119``, its default branch): plain PyTorch, the outer loop over
+chunks with each chunk under `torch.utils.checkpoint`, so only the carried
+state crosses chunks.  The tests hold it against JAX's, and chip_smoke.py
+uses it as the backward kernel's oracle where a step-by-step graph would
+not fit.
 
 `Mamba2` holds `init_mamba2`'s parameters (``ssm.py:205-245``);
 `mamba2_forward` runs the SSD over chunks (`ssd_chunked`, plain PyTorch as
-the reference's is jnp) and `mamba2_decode` one token.
+the reference's is jnp, and trained by autograd through it) and
+`mamba2_decode` one token.  Both mixers' parameters are trainable.
 
 Like the reference, this Mamba1 has no RMS norms on B, C or delta, which
 the published Falcon-Mamba adds: the port computes what the JAX package
@@ -21,6 +27,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models.layers import Params, _trunc_normal, causal_depthwise_conv1d
@@ -69,7 +76,7 @@ class Mamba1(Params):
     """One Mamba1 mixer: `init_mamba1`'s parameters plus the config."""
 
     def __init__(self, tensors, cfg):
-        super().__init__(tensors, trainable=False)  # Mamba1 training is not ported
+        super().__init__(tensors)
         self.cfg = cfg
 
     def forward(self, x):
@@ -87,8 +94,52 @@ def _split_proj(proj, cfg):
     return proj.split([r, n, n], dim=-1)
 
 
+def _scan_chunk(h, x, delta, A, B, C):
+    """``selective_scan_chunked``'s body: a chunk's steps from state ``h``.
+
+    The chunk's operands are cast to float32 here, chunk-locally, as the
+    reference casts them (``ssm.py:97-103``).  Returns (h after the chunk,
+    y (b, chunk, di) float32 without the D term).
+    """
+    x, delta, B, C = (t.float() for t in (x, delta, B, C))
+    ys = []
+    for t in range(x.shape[1]):
+        d_t = delta[:, t]
+        h = torch.exp(d_t[..., None] * A) * h + (d_t * x[:, t])[..., None] * B[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    return h, torch.stack(ys, 1)
+
+
+def selective_scan_chunked(x, delta, A, B, C, D, chunk: int):
+    """The Mamba1 recurrence over chunks of ``chunk`` steps (``ssm.py:74-119``).
+
+    x, delta: (b,S,di); A: (di,N); B, C: (b,S,N); D: (di,).  Returns (y
+    (b,S,di) in x's dtype, h_final (b,di,N) float32), the function
+    `selective_scan` computes.  A ragged tail is padded with delta = 0
+    (decay 1, no input), which leaves the state as it was.  Each chunk runs
+    under `torch.utils.checkpoint`: the backward keeps only the state
+    entering each chunk and runs the chunk's steps again.
+    """
+    b, S, di = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        x_p, delta_p, B_p, C_p = (F.pad(t, (0, 0, 0, pad)) for t in (x, delta, B, C))
+    else:
+        x_p, delta_p, B_p, C_p = x, delta, B, C
+    h = torch.zeros(b, di, A.shape[-1], dtype=torch.float32, device=x.device)
+    ys = []
+    for s0 in range(0, S + pad, chunk):
+        part = [t[:, s0:s0 + chunk] for t in (x_p, delta_p, B_p, C_p)]
+        h, y = checkpoint(_scan_chunk, h, part[0], part[1], A, part[2], part[3],
+                          use_reentrant=False)
+        ys.append(y)
+    y = torch.cat(ys, 1)[:, :S] + x.float() * D
+    return y.to(x.dtype), h
+
+
 def mamba1_forward(m, x, cfg):
-    """Full-sequence (prefill) mamba1 block. x: (B,S,d).
+    """Full-sequence (training and prefill) mamba1 block. x: (B,S,d).
 
     Returns (y, (conv_state, ssm_state)): the final states, which are the
     decode cache after prefill.
@@ -177,7 +228,7 @@ class Mamba2(Params):
     """One Mamba2 mixer: `init_mamba2`'s parameters plus the config."""
 
     def __init__(self, tensors, cfg):
-        super().__init__(tensors, trainable=False)  # Mamba2 training is not ported
+        super().__init__(tensors)
         self.cfg = cfg
 
     def forward(self, x):
@@ -202,7 +253,9 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     ``exp(cum_i - cum_j)`` is masked to j <= i after the exp, which
     overflows to inf (and inf * 0 to NaN) above the diagonal once a
     chunk's decay passes exp(88); here the exponent is masked first, so
-    the two agree wherever the reference is finite.
+    the two agree wherever the reference is finite.  The gradient stays
+    finite as well: a masked entry's exp is 0 and `masked_fill` hands its
+    exponent no gradient.
     """
     b, S, h, p = x.shape
     n = B.shape[-1]
@@ -256,7 +309,7 @@ def _split_mamba2_proj(proj, cfg):
 
 
 def mamba2_forward(m, x, cfg):
-    """Full-sequence (prefill) mamba2 block. x: (B,S,d).
+    """Full-sequence (training and prefill) mamba2 block. x: (B,S,d).
 
     Returns (y, (conv_state (B,K-1,di+2n), ssm_state (B,h,n,p))), both
     float32: the decode cache after prefill.

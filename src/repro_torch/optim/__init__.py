@@ -5,6 +5,7 @@ from repro_torch.optim.optimizers import (
     adamw,
     apply_updates,
     chain,
+    clip_adamw_in_place,
     clip_by_global_norm,
     global_norm,
 )
@@ -15,6 +16,7 @@ __all__ = [
     "adamw",
     "apply_updates",
     "chain",
+    "clip_adamw_in_place",
     "clip_by_global_norm",
     "global_norm",
 ]

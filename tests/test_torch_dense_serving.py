@@ -79,7 +79,7 @@ def _close_caches(cache, jcache, tol=CACHE_TOL):
 
 def _full_logits(model, tokens):
     """The port's training forward over whole sequences: (B,S,V) logits."""
-    h = TM._run_layers_train(model, TM._embed_tokens(model, tokens))
+    h, _ = TM._run_layers_train(model, TM._embed_tokens(model, tokens))
     return TM._logits(model, h)
 
 
@@ -103,9 +103,8 @@ def test_configs_and_registry_match_the_reference(arch):
 def test_published_sizes():
     assert get_config("granite-8b").param_count() == 8_254_685_184
     assert get_config("minitron-8b").param_count() == 9_882_042_368
-    assert TM.PORTED == {"dense": ("training", "serving"), "moe": ("serving",),
-                         "mamba1": ("serving",), "hybrid": ("serving",),
-                         "vlm": ("serving",), "audio": ("serving",)}
+    assert TM.PORTED == {fam: ("training", "serving") for fam in
+                         ("dense", "moe", "mamba1", "hybrid", "vlm", "audio")}
 
 
 # ------------------------------------------------------------- the cache

@@ -123,7 +123,7 @@ def test_init_matches_the_reference_layout(dtype):
     assert bool(((m.A_log.exp() >= 1) & (m.A_log.exp() < 16)).all())
     dt = torch.nn.functional.softplus(m.dt_bias)
     assert bool(((dt > 0.99e-3) & (dt < 1.01e-1)).all())
-    assert not any(p.requires_grad for p in own.parameters())  # served, not trained
+    assert all(p.requires_grad for p in own.parameters())  # served and trained
     # per layer: the norm and eight mamba2 leaves; the shared block's 9; embed,
     # unembed, final norm
     assert len(tree_leaves(own.tree())) == tcfg.num_layers * 9 + 9 + 3
@@ -202,8 +202,8 @@ def test_mamba2_forward_and_decode(dtype):
     step = x[:, :1] * 0.5
     y1, (c1, s1) = m0.decode(torch.from_numpy(step).to(tcfg.activation_dtype), conv, ssm)
     jy1, (jc1, js1) = jax.jit(lambda *a: JS.mamba2_decode(*a, jcfg))(
-        p0, jnp.asarray(step, jcfg.activation_dtype), jnp.asarray(conv.numpy()),
-        jnp.asarray(ssm.numpy()))
+        p0, jnp.asarray(step, jcfg.activation_dtype), jnp.asarray(conv.detach().numpy()),
+        jnp.asarray(ssm.detach().numpy()))
     _close(y1, jy1, tol)
     _close(c1, jc1, CACHE_TOL)
     _close(s1, js1, CACHE_TOL)

@@ -171,7 +171,7 @@ def test_mamba1_forward_and_decode(dtype):
         _close(conv, jconv, F32_TOL)
         _close(ssm, jssm, tol)
 
-    jconv, jssm = jnp.asarray(conv.numpy()), jnp.asarray(ssm.numpy())
+    jconv, jssm = jnp.asarray(conv.detach().numpy()), jnp.asarray(ssm.detach().numpy())
     step = x[:, :1] * 0.5
     y1, (c1, s1) = m0.decode(torch.from_numpy(step).to(tcfg.activation_dtype), conv, ssm)
     jy1, (jc1, js1) = jax.jit(lambda *a: JS.mamba1_decode(*a, jcfg))(

@@ -160,11 +160,11 @@ def test_olmoe_config_and_init_match_the_reference():
             TM.init_model(torch.Generator().manual_seed(0), tcfg)))
         want = jax.tree_util.tree_map(lambda x: (x.shape, str(x.dtype)), params)
         assert got == want
-        assert not any(p.requires_grad for p in model.parameters())  # moe serves only
+        assert all(p.requires_grad for p in model.parameters())  # moe trains and serves
     _, _, tcfg, model = _models()
-    with pytest.raises(NotImplementedError, match="training of the 'moe' family"):
-        TM.forward_train(model, {"tokens": torch.zeros(1, 4, dtype=torch.long),
-                                 "labels": torch.zeros(1, 4, dtype=torch.long)})
+    _, metrics = TM.forward_train(model, {"tokens": torch.zeros(1, 4, dtype=torch.long),
+                                          "labels": torch.zeros(1, 4, dtype=torch.long)})
+    assert sorted(metrics) == ["lm_loss", "loss", "router_aux", "router_z"]
 
 
 def test_olmoe_prefill_and_decode_against_jax():

@@ -109,7 +109,7 @@ def test_init_matches_the_reference_layout(arch):
     shapes = lambda tree: jax.tree_util.tree_map(lambda x: (x.shape, str(x.dtype)), tree)
     assert shapes(lm_params_to_jax(own)) == shapes(params)
     assert shapes(lm_params_to_jax(model)) == shapes(params)
-    assert not any(p.requires_grad for p in own.parameters())  # served, not trained
+    assert all(p.requires_grad for p in own.parameters())  # served and trained
     if arch == AUDIO:
         K, V, d = tcfg.num_codebooks, tcfg.vocab, tcfg.d_model
         assert own.embed.embedding.shape == (K, V, d) and own.unembed.w.shape == (K, d, V)
