@@ -283,12 +283,16 @@ codebook):
 
 47. kernel parity: selective_scan_bwd against autograd of the plain
     version with a nonzero h_final cotangent, at (2, 256, 1024, N) for N =
-    4, 8, 16, at S = 250 and 37 (not multiples of its 16-step chunk, di =
-    200 not one of its 32-lane block), float32 and bf16, and at (1, 512,
-    8192, 16) against `selective_scan_chunked`'s autograd: float32
-    gradients at 1e-4, bf16 at 2e-2; its time at Falcon-Mamba's training
-    shape (4, 2048, 8192, 16) bf16, both rulers as in 3, beside the plain
-    version and its bound;
+    4, 8, 16, at S = 250, 37, 15, 17 and 1 (around and under its 16-step
+    chunk) with di = 200, 130 and 40 (not multiples of its block's 32 lanes
+    at N = 16, 64 at N = 8, 128 at N = 4; 130 takes its element-by-element
+    staging), float32 and bf16, and at (1, 512, 8192, 16) against
+    `selective_scan_chunked`'s autograd: float32 gradients at 1e-4, bf16 at
+    2e-2, and a second launch on the same inputs bitwise equal (its sums
+    over d have a fixed order); at Falcon-Mamba's training shape (4, 2048,
+    8192, 16) bf16, its gradients against the plain version in float32 on the
+    same inputs (each rounded once to its input's dtype) at 2e-2, and its
+    time, both rulers as in 3, beside the plain version and its bound;
 48. train: each family at its published width through
     `repro_torch.launch.train.train`, bf16, remat, 3 steps of batch 4 x
     2048 tokens (LLaVA: 2,880 vision embeddings + 1,216 text tokens;
@@ -299,7 +303,9 @@ codebook):
     once, flash_attention twice an attention layer or shared-block
     invocation a step, fused_xent once a step (MusicGen 4 times), every
     parameter finite (Zamba2's SSD gradient at full width among them); step
-    walls, positions/s, peak memory;
+    walls, positions/s, peak memory; then one more Falcon-Mamba step under
+    torch.profiler: device time by kernel, the backward's and the forward
+    scan's shares, the step's busy and idle share;
 49. slice parity: each family at full width cut to 2 layers (Zamba2 with
     its shared block after the second; LLaVA with 64 vision embeddings),
     float32, batch 1 x 256, one train step on the card and on the CPU: the
@@ -500,12 +506,15 @@ BENCH_ITERATIONS, BENCH_SEEDS, BENCH_LOOP_EPISODES = 64, 2, 1
 BENCH_OUT = "results/port/chip_smoke/BENCH_speed.json"  # git-ignored
 # slice 14, training of the moe, mamba1, hybrid, vlm and audio families.  The selective
 # scan's backward kernel against autograd of its plain version: (b, S, di, N) at N = 4,
-# 8, 16; S not a multiple of its 16-step chunk (250, 37) with di not a multiple of its
-# 32-lane block; and Falcon-Mamba's full di against `selective_scan_chunked`'s autograd,
-# where a step-by-step graph of the plain version would not pay; every case with a
-# nonzero h_final cotangent
+# 8, 16; S not a multiple of its 16-step chunk (250, 37), one short of and one past it
+# (15, 17) and a single step, with di not a multiple of its block's lanes (32 at N = 16:
+# 128 threads of 4 states; 64 at N = 8, 128 at N = 4; di = 130 is not a multiple of 16
+# bytes of bf16, so it takes the element-by-element staging); and Falcon-Mamba's full
+# di against `selective_scan_chunked`'s autograd, where a step-by-step graph of the
+# plain version would not pay; every case with a nonzero h_final cotangent
 SCAN_BWD_SHAPES = [(2, 256, 1024, 4), (2, 256, 1024, 8), (2, 256, 1024, 16),
-                   (2, 250, 1024, 16), (3, 37, 200, 8)]
+                   (2, 250, 1024, 16), (3, 37, 200, 8), (2, 250, 200, 16), (2, 15, 130, 16),
+                   (2, 17, 130, 8), (3, 1, 40, 4)]
 SCAN_BWD_CHUNKED = (1, 512, 8192, 16)
 SCAN_BWD_PATH = (4, 2048, 8192, 16)  # Falcon-Mamba's training shape, timed in bf16
 SCAN_BWD_BF16_TOL = 2e-2  # bf16 x/B/C/dy: dx, dB and dC are rounded to bf16
@@ -546,7 +555,7 @@ def _kernel_name(mangled: str) -> str:
         start = pos + m.end()
         pos = start + int(m.group())
         name = mangled[start:pos]
-        if not name.endswith("_kernel"):
+        if not name.endswith("_kernel") and not mangled.startswith("I", pos):
             continue
         if not mangled.startswith("I", pos):
             return name
@@ -2834,7 +2843,8 @@ def _chunked_vjp(t, dy, dh):
 
 
 def scan_bwd_parity(sops, sref):
-    """selective_scan_bwd against autograd of its plain version, float32 and bf16."""
+    """selective_scan_bwd against autograd of its plain version, float32 and bf16; a second
+    launch on the same inputs gives bitwise the same gradients."""
     names = ("dx", "ddelta", "dA", "dB", "dC", "dD")
     cases = [(shape, dt) for shape in SCAN_BWD_SHAPES for dt in (torch.float32, torch.bfloat16)]
     worst = {}
@@ -2842,6 +2852,7 @@ def scan_bwd_parity(sops, sref):
         t = _scan_inputs(b, S, di, N, dtype, seed=S + N)
         dy, dh = _scan_cotangents(b, S, di, N, dtype, seed=di + N)
         got = sops.selective_scan_bwd(*t.values(), dy, dh)
+        again = sops.selective_scan_bwd(*t.values(), dy, dh)
         chunked = (b, S, di, N) == SCAN_BWD_CHUNKED
         want = (_chunked_vjp(t, dy, dh) if chunked
                 else sref.selective_scan_ref_vjp(*t.values(), dy, dh))
@@ -2850,22 +2861,38 @@ def scan_bwd_parity(sops, sref):
                 f"{' vs selective_scan_chunked' if chunked else ''}")
         tol = SCAN_TOL if dtype == torch.float32 else SCAN_BWD_BF16_TOL
         worst[case] = {}
-        for name, x, y, inp in zip(names, got, want, t.values()):
+        for name, x, y, z, inp in zip(names, got, want, again, t.values()):
             _require(x.dtype == y.dtype == inp.dtype, f"{name} dtype {x.dtype}: {case}")
             _require(_within(x.float(), y.float(), tol),
                      f"{name} differs by {_err(x.float(), y.float()):.3e}: {case}")
+            _require(torch.equal(x, z), f"{name} differs between two launches: {case}")
             worst[case][name] = _err(x.float(), y.float())
-        del t, dy, dh, got, want
+        del t, dy, dh, got, again, want
     return worst
 
 
 def scan_bwd_timing(sops):
-    """The backward kernel at Falcon-Mamba's training shape, bf16: both rulers, the
-    plain version (`selective_scan_chunked`'s autograd) and the bound."""
+    """The backward kernel at Falcon-Mamba's training shape, bf16: its gradients against
+    the plain version's (`selective_scan_chunked`'s autograd), both rulers, the plain
+    version's time and the bound."""
     b, S, di, N = SCAN_BWD_PATH
     t = _scan_inputs(b, S, di, N, torch.bfloat16, seed=0)
     dy, dh = _scan_cotangents(b, S, di, N, torch.bfloat16, seed=1)
     args = (*t.values(), dy, dh)
+    # The reference here is the plain version in float32 on the same (bf16-valued)
+    # inputs, each gradient rounded once to its input's dtype, as the kernel rounds it.
+    # The plain version run in bf16 rounds dx's two terms to bf16 apart and adds them
+    # in bf16, which over this shape's 67M elements strays past 2e-2 by itself.
+    got = sops._launch_bwd(*args)
+    want = _chunked_vjp({k: v.float() for k, v in t.items()}, dy.float(), dh)
+    errs = {}
+    for name, x, y, inp in zip(("dx", "ddelta", "dA", "dB", "dC", "dD"), got, want, t.values()):
+        y = y.to(inp.dtype).float()
+        _require(x.dtype == inp.dtype, f"{name} dtype {x.dtype} at the training shape")
+        _require(_within(x.float(), y, SCAN_BWD_BF16_TOL),
+                 f"{name} differs by {_err(x.float(), y):.3e} at the training shape")
+        errs[name] = _err(x.float(), y)
+    del got, want
     ms = _time_ms(lambda: sops._launch_bwd(*args), reps=5, inner=2)
     dev_ms = _device_ms(lambda: sops._launch_bwd(*args), inner=2, reps=5)
     plain_ms = _time_ms(lambda: _chunked_vjp(t, dy, dh), reps=1, inner=1)
@@ -2879,7 +2906,8 @@ def scan_bwd_timing(sops):
     bounds = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
               "operations": max(exps / SFU_EXP_PER_S, flops / F32_FLOPS_PER_S) * 1e3}
     bound_by = max(bounds, key=bounds.get)
-    return {"b": b, "S": S, "di": di, "N": N, "dtype": "bfloat16", "ms": ms, "device_ms": dev_ms,
+    return {"b": b, "S": S, "di": di, "N": N, "dtype": "bfloat16", "errors": errs,
+            "max_abs_err": max(errs.values()), "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain_ms, "bytes": nbytes, "exps": exps, "flops": flops,
             "bytes_ms": bounds["bytes"], "exp_ms": exps / SFU_EXP_PER_S * 1e3,
             "flop_ms": flops / F32_FLOPS_PER_S * 1e3, "bound_ms": bounds[bound_by],
@@ -2895,6 +2923,40 @@ def _path_launches(cfg):
     attention = (cfg.num_attn_invocations if cfg.arch_type == "hybrid"
                  else 0 if cfg.arch_type == "ssm" else cfg.num_layers)
     return fwd * mamba1, mamba1, fwd * attention, max(cfg.num_codebooks, 1)
+
+
+def profile_train_step(run, cfg, seq):
+    """One more steady step of ``run`` under torch.profiler: device time by kernel, the
+    selective scan's forward and backward kernels' shares, the step's busy and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.breakdown import _device_summary
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+
+    _, step = make_train_step(cfg, 3e-4)
+    batch = train.make_batch(cfg, SyntheticTokenDataset(cfg.vocab, seq, FAMILY_TRAIN_BATCH, seed=1),
+                             np.random.default_rng(1), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, metrics = step(run.model, run.opt_state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _require(bool(torch.isfinite(metrics["loss"])), f"{cfg.name}: non-finite profiled loss")
+    parts = ("selective_scan_kernel", "selective_scan_bwd", "selective_scan_bwd_sweep",
+             "selective_scan_bwd_kernel", "selective_scan_bwd_finish")
+    summary = _device_summary(prof, wall, *parts)
+    _require(summary["device_idle_share"] is not None, f"{cfg.name}: the profiler saw no device time")
+    busy_ms = summary["device_busy_s"] * 1e3
+    summary["share_of_busy"] = {k: summary[k]["device_ms"] / busy_ms for k in parts}
+    # a backward call is three kernels: the sweep, the reverse walk and the finish
+    seen = (summary["selective_scan_kernel"]["profiler"], summary["selective_scan_bwd"]["profiler"])
+    want = (2 * cfg.num_layers, 3 * cfg.num_layers)
+    _require(seen == want, f"{cfg.name}: the profiler saw (forward, backward) scan kernels {seen}, "
+                           f"not {want}")
+    return summary
 
 
 def family_train(sops, fops, xops, arch, changes, seq):
@@ -2937,6 +2999,8 @@ def family_train(sops, fops, xops, arch, changes, seq):
            "six_n_share": M.model_flops_per_token(cfg) * tokens / step_s / BF16_FLOPS_PER_S,
            "peak_gb": peak / 1e9, "wall_s": wall, "launches": dict(zip(
                ("selective_scan", "selective_scan_bwd", "flash_attention", "fused_xent"), got))}
+    if cfg.arch_type == "ssm":  # the first device breakdown of a mamba1 training step
+        out["profiled"] = profile_train_step(run, cfg, seq)
     del run, init, leaves
     torch.cuda.empty_cache()
     return out
@@ -3003,11 +3067,14 @@ def lm_train_phase(tag, sops, sref, fops, xops):
     for case, e in worst.items():
         tol = SCAN_TOL if "float32" in case else SCAN_BWD_BF16_TOL
         print(f"kernel parity: selective_scan_bwd {case}: max abs err "
-              + ", ".join(f"{k} {v:.3e}" for k, v in e.items()) + f" (tol {tol})")
+              + ", ".join(f"{k} {v:.3e}" for k, v in e.items()) + f" (tol {tol}); a second "
+              f"launch bitwise equal")
     row = scan_bwd_timing(sops)
     print(
         f"kernel timing: selective_scan_bwd b={row['b']} S={row['S']} di={row['di']} "
-        f"N={row['N']} bf16: {row['ms'] * 1e3:.2f} us a call launched eagerly "
+        f"N={row['N']} bf16: max abs err against the plain version in float32 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in row["errors"].items())
+        + f" (tol {SCAN_BWD_BF16_TOL}); {row['ms'] * 1e3:.2f} us a call launched eagerly "
         f"({row['device_ms'] * 1e3:.2f} us on the device), plain (selective_scan_chunked's "
         f"autograd) {row['plain_ms']:.1f} ms, bound {row['bound_ms'] * 1e3:.2f} us by "
         f"{row['bound_by']} (bytes {row['bytes_ms'] * 1e3:.2f} us for {row['bytes']} B; exp "
@@ -3029,6 +3096,17 @@ def lm_train_phase(tag, sops, sref, fops, xops):
             f"{[round(x, 4) for x in r['losses']]}; launches {json.dumps(r['launches'])}; "
             f"every parameter changed; {r['wall_s']:.1f} s with init {tag}"
         )
+        if "profiled" in r:
+            p = r["profiled"]
+            print(
+                f"train profile: {arch} one steady step under torch.profiler: wall "
+                f"{p['wall_s'] * 1e3:.1f} ms, device busy {p['device_busy_s'] * 1e3:.1f} ms, idle "
+                f"share {p['device_idle_share']:.4f}, {p['kernel_launches']} kernels; "
+                + "; ".join(f"{k} {p[k]['profiler']}x {p[k]['device_ms']:.2f} ms "
+                            f"({p['share_of_busy'][k]:.4f} of busy)" for k in p["share_of_busy"])
+                + "; top kernels " + "; ".join(f"{e['name']} {e['count']}x {e['device_ms']:.2f} ms"
+                                               for e in p["top_kernels"]) + f" {tag}"
+            )
     t1 = time.perf_counter()
     parity = {}
     for arch, changes in FAMILY_TRAIN_PARITY.items():
@@ -3473,12 +3551,17 @@ def main():
                            if "float32" in c),
         "max_abs_err_bf16": max(max(e.values()) for c, e in lm["scan_bwd_worst"].items()
                                 if "bfloat16" in c),
+        "max_abs_err_path": bwd_row["max_abs_err"],
         **{key: bwd_row[key] for key in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
-        "design": "a warp of 32 (b, d) lanes a block, N states a thread; the state entering "
-                  "every 16th step stored by a forward sweep, each chunk rebuilt into shared "
-                  "memory and walked back; dB/dC summed over the warp by a transposing "
-                  "butterfly, over blocks and dA/dD over b by a second kernel in a fixed order",
+        "design": "three kernels: a forward sweep (8 states a thread) stores the state "
+                  "entering every 16th step; the reverse walk (128 threads over 32 lanes at "
+                  "N = 16, 4 states a thread) rebuilds each chunk keeping a_t and a_t h_{t-1} "
+                  "in registers and carries g back through them (two exponentials a "
+                  "(b, t, d, n)); dB/dC shares summed over the block's lanes through shared "
+                  "memory every 8 steps, the blocks' partials and dA/dD over b added by a "
+                  "third kernel, every sum in a fixed order",
+        "profiled_step": lm["trained"]["falcon-mamba-7b"]["profiled"],
         "shape": "b=4 S=2048 di=8192 N=16 bf16 (Falcon-Mamba's training shape)",
         "by_shape": [bwd_row],
         "gpu": gpu,
