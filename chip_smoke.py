@@ -73,12 +73,12 @@ InternLM2-1.8B dense LM training, the third slice:
     for its GEMM part (``gemm_ms``; it does not compute the loss); the port
     calls neither;
 13. train: the launcher (`repro_torch.launch.train.main`) at the published
-    config (24 layers, bf16, remat) for 6 steps of batch 4 x 4096 tokens;
+    config (24 layers, bf16, remat) for 4 steps of batch 4 x 4096 tokens;
     losses finite, 48 flash_attention launches a step (remat runs each
     layer's forward twice), 1 fused_xent launch and 1 launch of its
     combine kernel (bf16 cuts the vocab into splits); then one more step
     under torch.profiler;
-14. slice parity: full width cut to 2 layers in float32, batch 1 x 256,
+14. slice parity: full width cut to 2 layers in float32, batch 1 x 128,
     the same weights on the card and on the CPU: the loss, every gradient
     and the parameters after one train step at 1e-4.
 
@@ -87,11 +87,11 @@ headline loop):
 
 15. train: ippo on spread, mappo on lbf and rec-MAPPO (linear core) on
     spread at PPOConfig's defaults and the registry's env defaults, 8
-    seeds as lanes of one batch x 256 envs x 256 iterations (2 updates a
-    lane), a greedy evaluation of 32 episodes a lane every 128 iterations,
-    2 runs each: losses (8, 2) and eval returns (8, 2, 32) finite, env
-    steps/s (median, min, max), rec-MAPPO's recurrent_scan launches what
-    one lane's updates need;
+    seeds as lanes of one batch x 256 envs x 128 iterations (1 update a
+    lane), a greedy evaluation of 32 episodes a lane at iteration 128,
+    one run each: losses (8, 1) and eval returns (8, 1, 32) finite, env
+    steps/s, rec-MAPPO's recurrent_scan launches what one lane's updates
+    need;
 16. the same 8 ippo seeds one run after another: the batched/serial
     ratio;
 17. tests/test_onpolicy.py's IPPO milestone on matrix_game (150 updates x
@@ -109,9 +109,9 @@ slice; no kernel lies on its path:
 
 20. train: vdn on spread, qmix on lbf, madqn-fp on matrix_game and mad4pg
     on continuous spread at the registry's defaults (OffPolicyConfig,
-    MaddpgConfig), 8 seed lanes x 256 envs x 256 iterations with a greedy
-    evaluation of 32 episodes a lane every 128, 2 runs each, and maddpg on
-    continuous spread once: an update every iteration from the one that
+    MaddpgConfig), 8 seed lanes x 256 envs x 128 iterations with a greedy
+    evaluation of 32 episodes a lane at the last, one run each, and maddpg on
+    continuous spread: an update every iteration from the one that
     fills the table to min_replay, losses and eval returns finite, env
     steps/s (median, min, max);
 21. the same 8 vdn seeds one run after another: the batched/serial ratio;
@@ -132,12 +132,12 @@ speaker_listener, smax_lite, robot_warehouse), the eighth slice:
     x 8 lanes, and with the 3 agents of a shared stack folded in (B =
     768 and 6144); its time at rec-MADQN's suffix (T=8, B=768) beside
     its bound;
-25. train: rec_madqn (linear core) on spread and dial on switch_game (2
-    runs each), rec_madqn (GRU, per-agent stacks) on speaker_listener,
+25. train: rec_madqn (linear core) on spread and dial on switch_game,
+    rec_madqn (GRU, per-agent stacks) on speaker_listener,
     rial and the fused no-channel dial (linear core) on switch_game, vdn
     on smax_lite and ippo on robot_warehouse, at the registry's
-    defaults, 8 seed lanes x 256 envs x 256 iterations with a greedy
-    evaluation of 32 episodes a lane every 128: updates a lane from the
+    defaults, 8 seed lanes x 256 envs x 128 iterations with a greedy
+    evaluation of 32 episodes a lane at the last: updates a lane from the
     dataset's fill, losses and eval returns finite, env steps/s (median,
     min, max), the last greedy team return, and recurrent_scan launched
     5 times a rec-MADQN update and 3 times a fused DIAL update;
@@ -156,7 +156,7 @@ lies on rec-IPPO's updates under them and on V-trace's actor re-run:
 
 28. train: the async runner on ippo/spread at PPOConfig's defaults (a
     chunk is one 128-step rollout) at 1, 2 and 4 actors of 256 envs x 256
-    iterations each (3 runs at 4 actors), beside anakin on the same config
+    iterations each, beside anakin on the same config
     before and after: env steps/s, updates, queue depth, staleness,
     dropped chunks; rec-IPPO (linear core, matrix_game) through it at 2
     actors, without V-trace and with it at param_sync_every 2, its
@@ -178,8 +178,8 @@ its training runs, not on the served tick (a memory core's ``step``):
 
 31. train: ippo and rec-IPPO (linear core) on matrix_game, and ippo on
     spread, through the launcher (`repro_torch.launch.train_marl.main`)
-    at serve_marl's defaults (512 iterations x 8 envs, the smoke
-    operating point) with --log-every, --log-dir, --run-id, --profile and
+    at serve_marl's defaults cut in run length (256 of 512 iterations x 8
+    envs, the smoke operating point) with --log-every, --log-dir, --run-id, --profile and
     --save-checkpoint: the run record's sections, its provenance naming
     the card and its power limit, the profiler's trace of one update
     cycle written, the streamed rows, rec-IPPO's recurrent_scan launches
@@ -259,7 +259,7 @@ linear core), no other rung runs it:
 
 43. bench: `repro_torch.bench.run_bench` for ippo and rec_ippo on
     matrix_game at 256 envs and the launcher's smoke operating point, cut
-    in run length only (64 iterations, 2 seeds, 1 loop episode): every
+    in run length only (32 iterations, 2 seeds, 1 loop episode): every
     rung's steps/s, each best-of rung's three repeats, the shard_map
     rung's warm rank loop beside its call's wall (one NCCL rank);
 44. the document passes the port's `check_speed_schema` (and its file
@@ -306,13 +306,45 @@ codebook):
     walls, positions/s, peak memory; then one more Falcon-Mamba step under
     torch.profiler: device time by kernel, the backward's and the forward
     scan's shares, the step's busy and idle share;
-49. slice parity: each family at full width cut to 2 layers (Zamba2 with
-    its shared block after the second; LLaVA with 64 vision embeddings),
-    float32, batch 1 x 256, one train step on the card and on the CPU: the
+49. slice parity: each family at full width cut to 1 layer (Zamba2 with
+    its shared block after it; LLaVA with 64 vision embeddings),
+    float32, batch 1 x 128, one train step on the card and on the CPU: the
     metrics and every parameter after it at 1e-4;
 50. checkpoints: `launch.train.main --smoke --ckpt-dir --ckpt-every 1` for
     every arch of ``ARCH_IDS``, 2 steps: the last checkpoint restores to
     the model's parameters exactly.
+
+Llama-3.1-405B and Kimi-K2 at their published widths, the pure-SSM Mamba2
+family, and Granite-8B and Minitron-8B training, the sixteenth slice;
+flash_attention lies on every prefill (Kimi's head_dim 112 on the wgmma
+design computed at 128 columns; 405B's 16 query heads a KV head),
+fused_xent on every training loss (Minitron's 256,000-token vocab):
+
+51. kernel parity: flash_attention at head_dim 112 on FLASH_CASES' wgmma
+    edges (S = 127, 129, 200, 300, 384 around 128-row query and 128-key
+    tiles, causal and not, windows starting inside a tile), float32 at
+    112, Kimi's 64/8 and 405B's 128/8 heads at the engine's short prompts
+    and at both prefills (4 x 2048), at the flash tolerances of 11;
+    fused_xent at (8192, 4096, 256,000) and (8192, 4096, 49,152) bf16, as
+    in 11;
+52. kernel timing at those four shapes beside the bound, the plain
+    version and SDPA (flash) or the cuBLAS product ``x @ w`` (fused_xent);
+53. launcher: `generate` at 405B's published width cut to 8 of 126
+    layers (59.4 GB of bf16 weights) and Kimi's cut to 1 of 61 (38.8 GB),
+    batch 4 x prompt 2048, 32 tokens, random weights from a seed: prefill
+    and decode walls beside their bounds (Kimi's decode bound counting
+    the experts its routing used), peak memory, flash launched once a
+    layer by the prefill; Kimi's dropped share and experts used;
+54. slice parity: float32 card vs CPU of 405B at 1 layer (batch 1 x 32),
+    Kimi at 1 layer with 32 of its 384 experts, top-8 (2 x 32), and a pure
+    Mamba2 stack at Zamba2-2.7B's Mamba2 widths (2 layers, 2 x 300 over 3
+    SSD chunks): prefill logits and every cache leaf at 1e-4, 4 decode
+    steps; the engine on the card equals sequential generation (405B and
+    Mamba2); one float32 train step at 2 layers of Granite-8B and
+    Minitron-8B (1 x 128) and of the Mamba2 stack (1 x 300): metrics and
+    every parameter at 1e-4;
+55. train: Granite-8B at 16 of 36 layers and Minitron-8B at 8 of 32,
+    published width, bf16, remat, 3 steps of batch 4 x 2048, as in 48.
 
 Lines before the last: the card's name and power limit, and one JSON
 object listing the kernels.  The last line is
@@ -409,22 +441,24 @@ FLASH_SERVE_PATH = (4, 32, 8, 2048, 128)  # Granite-8B's prefill at batch 4 x 20
 XENT_CASES = [(64, 128, 1000), (100, 64, 512), (128, 32, 2048), (32, 16, 77),
               (129, 64, 255), (129, 128, 257), (64, 40, 1001)]
 XENT_PATH = (16384, 2048, 92544)  # (B*S, d_model, vocab)
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 4096
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 4096  # 6 steps until the slice-16 phase came
 
 # the paper's headline loop: seed-batched Anakin training at PPOConfig's
-# defaults with interleaved greedy evaluation (2 updates and 2 evaluations
-# of 32 episodes a lane), on the registry's env defaults
-MARL_SEEDS, MARL_ENVS, MARL_ITERATIONS, MARL_EVAL_EVERY, MARL_EPISODES = 8, 256, 256, 128, 32
+# defaults with interleaved greedy evaluation (1 update and 1 evaluation of 32
+# episodes a lane; 256 iterations, 2 of each, until the slice-16 phase came), on
+# the registry's env defaults
+MARL_SEEDS, MARL_ENVS, MARL_ITERATIONS, MARL_EVAL_EVERY, MARL_EPISODES = 8, 256, 128, 128, 32
 MARL_RUNS = [("ippo", "spread", {}), ("mappo", "lbf", {}),
              ("rec_mappo", "spread", {"recurrent_core": "linear"})]
-# 3 runs each until the distributed phase came (PR 19): 2 keep the whole run near ~430 s
-MARL_REPEATS = REPLAY_REPEATS = 2
+# 3 runs each until the distributed phase came, 2 until the slice-16 phase came:
+# one keeps the whole script inside its time limit
+MARL_REPEATS = REPLAY_REPEATS = 1
 # rec-MAPPO's unrolls with the seed lanes folded into the kernel's D axis:
 # (T, lanes x 64 envs, H) a minibatch and (T, lanes x 256 envs, H) the bootstrap
 MARL_PATH_SHAPES = [(128, MARL_SEEDS * MARL_ENVS // 4, 64), (128, MARL_SEEDS * MARL_ENVS, 64)]
 SEED_IPPO_FIRST15, SEED_IPPO_LAST15 = 2.281, 4.994  # tests/test_onpolicy.py:18-19
 # the replay family at the registry's defaults (OffPolicyConfig, MaddpgConfig), 8 seed
-# lanes x 256 envs x 256 iterations like the MARL phase; maddpg runs once beside them
+# lanes x 256 envs x 128 iterations like the MARL phase; maddpg runs once beside them
 REPLAY_RUNS = [("vdn", "spread"), ("qmix", "lbf"), ("madqn-fp", "matrix_game"),
                ("mad4pg", "spread")]
 REPLAY_PARITY = [("vdn", "spread"), ("qmix", "lbf"), ("mad4pg", "spread")]
@@ -432,12 +466,12 @@ REPLAY_PARITY = [("vdn", "spread"), ("qmix", "lbf"), ("mad4pg", "spread")]
 REPLAY_MILESTONE_CFG = dict(buffer_capacity=5_000, min_replay=100, batch_size=32,
                             eps_decay_steps=2_000, target_update_period=50, learning_rate=1e-3)
 # the rest of the support matrix (rec-MADQN, DIAL, RIAL; switch_game, speaker_listener,
-# smax_lite, robot_warehouse) at the registry's defaults, 8 seed lanes x 256 envs x 256
+# smax_lite, robot_warehouse) at the registry's defaults, 8 seed lanes x 256 envs x 128
 # iterations like the MARL phase: (label, system, env, config overrides, runs)
 MATRIX_RUNS = [
-    ("rec_madqn linear", "rec_madqn", "spread", {"recurrent_core": "linear"}, 2),
+    ("rec_madqn linear", "rec_madqn", "spread", {"recurrent_core": "linear"}, 1),
     ("rec_madqn gru", "rec_madqn", "speaker_listener", {}, 1),
-    ("dial", "dial", "switch_game", {}, 2),
+    ("dial", "dial", "switch_game", {}, 1),
     ("rial", "rial", "switch_game", {}, 1),
     ("dial fused", "dial", "switch_game", {"use_comm": False, "recurrent_core": "linear"}, 1),
     ("vdn", "vdn", "smax_lite", {}, 1),
@@ -457,22 +491,22 @@ REC_MADQN_MILESTONE_CFG = dict(hidden_sizes=(32,), learning_rate=1e-3, seq_len=5
                                eps_decay_steps=3000, target_update_period=100)
 # the distributed runners: the async actor/learner runner on ippo/spread at PPOConfig's
 # defaults (a chunk is one 128-step rollout) at 1 / 2 / 4 actors, each actor stepping 256
-# envs for 256 iterations (3 runs at 4 actors), beside anakin on the same config; the
-# sharded runner at one rank on NCCL
-ASYNC_ENVS, ASYNC_ITERATIONS, ASYNC_ACTORS, ASYNC_REPEATS = 256, 256, (1, 2, 4), 3
+# envs for 256 iterations (one run each), beside anakin on the same config; the sharded
+# runner at one rank on NCCL
+ASYNC_ENVS, ASYNC_ITERATIONS, ASYNC_ACTORS, ASYNC_REPEATS = 256, 256, (1, 2, 4), 1
 VTRACE_CLIPS = dict(use_vtrace=True, vtrace_clip_rho=0.9, vtrace_clip_c=0.8)
 # the staleness-0 pins' small configs (tests/test_torch_async.py)
 PIN_PPO = dict(hidden_sizes=(32, 32), rollout_len=8, epochs=1, num_minibatches=2)
 PIN_VDN = dict(hidden_sizes=(32, 32), batch_size=32, buffer_capacity=5_000, min_replay=64)
 PIN_TOL = 1e-5
 SHARDED_RUNS = [("ippo", "spread"), ("madqn", "matrix_game")]
-# slice 10, at serve_marl's defaults: train-then-serve checkpoints of 512 iterations x 8
+# slice 10, at serve_marl's defaults: train-then-serve checkpoints of 256 iterations x 8
 # envs at the smoke operating point on matrix_game, served at 2 and 8 slots to 8 streams
 # x 4 episodes at 0.2 requests a tick a stream, greedy; ippo on spread at 256 slots (the
 # runners' env count) to 256 streams; the first 64 ticks held card vs CPU; the taps
 # on/off runs at 8 lanes x 256 envs x 64 iterations; the sweep at 2 seeds x 8 iterations
 SERVE_ROOT = "results/port/chip_smoke"  # git-ignored
-SERVE_TRAIN_ITERATIONS, SERVE_TRAIN_ENVS, SERVE_LOG_EVERY = 512, 8, 64
+SERVE_TRAIN_ITERATIONS, SERVE_TRAIN_ENVS, SERVE_LOG_EVERY = 256, 8, 64  # 512 until slice 16
 SERVE_SLOTS, SERVE_STREAMS, SERVE_EPISODES, SERVE_RATE = (2, 8), 8, 4, 0.2
 WIDE_SLOTS, PARITY_TICKS, NEAR_TIE = 256, 64, 1e-5
 TAP_SEEDS, TAP_ENVS, TAP_ITERATIONS, TAP_EVERY = 8, 256, 64, 16
@@ -499,10 +533,10 @@ FAMILY_PARITY = {"zamba2-2.7b": (dict(num_layers=4, attn_every=2), 300),
 FLASH_FAMILY_PATHS = [(4, 32, 32, 2048, 80, 4096), (4, 32, 8, 4096, 128, 0),
                       (4, 32, 32, 2048, 64, 0)]
 # slice 13, the throughput benchmark at 256 envs and bench_marl's smoke operating point,
-# cut in run length to fit its ~150 s: iterations (bench_marl's 256; a multiple of the
-# smoke rollout of 32, the async unroll), seeds (8) and loop episodes (3)
+# cut in run length to fit the script's time limit: iterations (bench_marl's 256; a
+# multiple of the smoke rollout of 32, the async unroll), seeds (8) and loop episodes (3)
 BENCH_SYSTEMS, BENCH_ENV, BENCH_ENVS = ("ippo", "rec_ippo"), "matrix_game", 256
-BENCH_ITERATIONS, BENCH_SEEDS, BENCH_LOOP_EPISODES = 64, 2, 1
+BENCH_ITERATIONS, BENCH_SEEDS, BENCH_LOOP_EPISODES = 32, 2, 1
 BENCH_OUT = "results/port/chip_smoke/BENCH_speed.json"  # git-ignored
 # slice 14, training of the moe, mamba1, hybrid, vlm and audio families.  The selective
 # scan's backward kernel against autograd of its plain version: (b, S, di, N) at N = 4,
@@ -530,14 +564,66 @@ FAMILY_TRAIN = [("olmoe-1b-7b", dict(num_layers=8), 2048),
                 ("llava-next-mistral-7b", dict(num_layers=16), 1216),
                 ("musicgen-large", {}, 2048)]
 FAMILY_TRAIN_STEPS, FAMILY_TRAIN_BATCH = 3, 4
-# card vs CPU, float32, batch 1 x 256 text tokens, one train step: full width cut to 2
-# layers (Zamba2: one shared-block invocation; LLaVA: 64 vision embeddings)
-FAMILY_TRAIN_PARITY = {"olmoe-1b-7b": dict(num_layers=2),
-                       "falcon-mamba-7b": dict(num_layers=2),
-                       "zamba2-2.7b": dict(num_layers=2, attn_every=2),
-                       "llava-next-mistral-7b": dict(num_layers=2, vision_tokens=64),
-                       "musicgen-large": dict(num_layers=2)}
+# card vs CPU, float32, batch 1 x 128 text tokens, one train step: full width cut to 1
+# layer (Zamba2: its shared block after it, one invocation; LLaVA: 64 vision embeddings);
+# 2 layers and 256 tokens until the slice-16 phase came: the CPU's side, its Adam step
+# over every parameter above all, is most of the phase
+FAMILY_TRAIN_PARITY = {"olmoe-1b-7b": dict(num_layers=1),
+                       "falcon-mamba-7b": dict(num_layers=1),
+                       "zamba2-2.7b": dict(num_layers=1, attn_every=1),
+                       "llava-next-mistral-7b": dict(num_layers=1, vision_tokens=64),
+                       "musicgen-large": dict(num_layers=1)}
 LM_CKPT_ROOT = "results/port/chip_smoke/lm_ckpt"  # git-ignored
+# slice 16, Llama-3.1-405B and Kimi-K2 at their published widths, the pure-SSM mamba2
+# family, Granite-8B and Minitron-8B training.  flash_attention's head_dim 112 instance
+# (Kimi's 7168 / 64; the wgmma design computed at 128 columns): FLASH_CASES' wgmma edges
+# at 112 (128-row query tiles, 128-key tiles, windows starting inside a tile, non-causal
+# on a ragged S), float32 at 112, Kimi's 8:1 and 405B's 16:1 grouping at the engine's
+# short prompts, then both prefills as they run
+FRONTIER_FLASH_CASES = [
+    (1, 4, 2, 127, 112, True, 0, torch.bfloat16),
+    (1, 4, 2, 127, 112, False, 0, torch.bfloat16),
+    (1, 4, 2, 129, 112, True, 0, torch.bfloat16),
+    (1, 4, 2, 129, 112, False, 0, torch.bfloat16),
+    (2, 8, 2, 200, 112, True, 0, torch.bfloat16),
+    (1, 4, 2, 200, 112, False, 0, torch.bfloat16),
+    (1, 2, 1, 300, 112, True, 70, torch.bfloat16),
+    (1, 2, 2, 384, 112, True, 200, torch.bfloat16),
+    (1, 8, 1, 200, 112, True, 0, torch.float32),
+    (1, 4, 2, 200, 112, False, 50, torch.float32),
+    (1, 64, 8, 32, 112, True, 0, torch.float32),
+    (1, 16, 1, 300, 128, True, 0, torch.bfloat16),
+    *[(1, 64, 8, S, 112, True, 0, torch.bfloat16) for S in (16, 37, 64)],
+    *[(1, 128, 8, S, 128, True, 0, torch.bfloat16) for S in (16, 37)],
+    (4, 64, 8, 2048, 112, True, 0, torch.bfloat16),
+    (4, 128, 8, 2048, 128, True, 0, torch.bfloat16),
+]
+FRONTIER_FLASH_PATHS = {"kimi-k2-1t-a32b": (4, 64, 8, 2048, 112),  # the two prefills
+                        "llama3-405b": (4, 128, 8, 2048, 128)}
+# fused_xent at the two training shapes: (B*S, d_model, vocab)
+FRONTIER_XENT_PATHS = {"minitron-8b": (8192, 4096, 256000), "granite-8b": (8192, 4096, 49152)}
+# (arch, config changes, batch, prompt, tokens) through the launcher's generate, random
+# weights from a seed, depth cut to fit 80 GB beside the activations: 405B at 8 of 126
+# layers (59.4 GB of bf16 weights), Kimi at 1 of 61 (38.8 GB: its 384 experts are 33.8 GB)
+FRONTIER_SERVE = [("llama3-405b", dict(num_layers=8), 4, 2048, 32),
+                  ("kimi-k2-1t-a32b", dict(num_layers=1), 4, 2048, 32)]
+# card vs CPU at published width, float32: (arch, config changes, batch, prompt).  405B at
+# 1 layer is 7.4e9 parameters (29.6 GB); Kimi's 384 experts alone would be 67.6 GB in
+# float32, so 32 of them, top-8 kept; the pure mamba2 family at Zamba2-2.7B's mamba2
+# widths, 2 layers, a prompt of 300 over 3 SSD chunks (no config uses the family)
+PURE_MAMBA2 = dict(arch_type="ssm", shared_attn=False, attn_every=0, num_layers=2)
+FRONTIER_PARITY = [("llama3-405b", dict(num_layers=1), 1, 32),
+                   ("kimi-k2-1t-a32b", dict(num_layers=1, num_experts=32), 2, 32),
+                   ("zamba2-2.7b", PURE_MAMBA2, 2, 300)]
+# training at published width, bf16, remat, batch 4 x 2048, 3 steps, depth cut at ~10
+# bytes a parameter: Granite-8B 16 of 36 layers (3.89e9 parameters), Minitron-8B 8 of 32
+# (4.04e9, 2.10e9 of them its two 256,000 x 4096 tables)
+FRONTIER_TRAIN = [("granite-8b", dict(num_layers=16), 2048),
+                  ("minitron-8b", dict(num_layers=8), 2048)]
+# one float32 train step card vs CPU: (arch, changes, tokens)
+FRONTIER_TRAIN_PARITY = [("granite-8b", dict(num_layers=2), 128),
+                         ("minitron-8b", dict(num_layers=2), 128),
+                         ("zamba2-2.7b", PURE_MAMBA2, 300)]
 
 
 def _require(cond, msg):
@@ -611,6 +697,21 @@ def _err(x, y):
 
 def _within(x, y, tol):
     return bool(((x - y).abs() <= tol + tol * y.abs()).all())
+
+
+def _leaves_within(card, host, tol, what):
+    """Require each card leaf within ``tol`` of its CPU counterpart; the largest abs error.
+
+    Compared on the card, one leaf at a time: the same float32 arithmetic as
+    on the CPU, without the CPU's fresh temporaries of a GB a table.
+    """
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(card, host)):
+        y = y.to(x.device)
+        err = _err(x, y)
+        _require(_within(x, y, tol), f"{what} leaf {i} differs by {err}")
+        worst = max(worst, err)
+    return worst
 
 
 def kernel_parity(ops, ref, shapes=None):
@@ -822,7 +923,7 @@ def _marl_run(system, num_seeds, seed=0):
 def marl_train(ops):
     """This slice's path: ippo, mappo and rec-MAPPO (linear core), 8 seeds as lanes of one batch.
 
-    Each run: 256 envs x 8 seeds x 256 iterations (2 updates a lane) with
+    Each run: 256 envs x 8 seeds x 128 iterations (1 update a lane) with
     a greedy evaluation of 32 episodes a lane every 128 iterations; env
     steps/s counts the training steps over the whole call's wall, the
     evaluations included.  The scan counter is set to 0 before each run
@@ -1006,8 +1107,8 @@ def replay_train():
     """This slice's path: the replay family, 8 seeds as lanes of one batch.
 
     vdn on spread, qmix on lbf, madqn-fp on matrix_game and mad4pg on
-    continuous spread (2 runs each), and maddpg on continuous spread (one
-    run), at the registry's defaults: 256 envs x 8 seeds x 256 iterations
+    continuous spread, and maddpg on continuous spread, one run each, at
+    the registry's defaults: 256 envs x 8 seeds x 128 iterations
     with a greedy evaluation of 32 episodes a lane every 128 iterations.
     Once the table holds ``min_replay`` rows every iteration updates, so
     each run's update count follows from the fill alone; env steps/s
@@ -1199,7 +1300,7 @@ def _matrix_updates(system, name, cfg):
 def matrix_train(ops):
     """This slice's path: the systems and envs new to the port, 8 seeds as lanes of one batch.
 
-    Each run: 256 envs x 8 seeds x 256 iterations at the registry's
+    Each run: 256 envs x 8 seeds x 128 iterations at the registry's
     defaults with a greedy evaluation of 32 episodes a lane every 128
     iterations.  The scan counter is set to 0 just before each run and read
     just after: rec-MADQN's linear core launches it 5 times an update (its
@@ -1726,8 +1827,8 @@ def _scan_update_bytes(T, N, M, n, H):
 def serve_train(ops, root, gpu):
     """Train ippo and rec-IPPO (linear core) through the launcher with every telemetry flag.
 
-    At serve_marl's defaults (matrix_game, 512 iterations x 8 envs, the
-    smoke operating point), with --log-every, --log-dir, --run-id,
+    At serve_marl's defaults cut in run length (matrix_game, 256 of 512
+    iterations x 8 envs, the smoke operating point), with --log-every, --log-dir, --run-id,
     --profile and --save-checkpoint; ippo on spread the same way, for the
     256-slot serving cell.  rec-IPPO's recurrent_scan launches over its
     launcher call must be what the updates' structure predicts.
@@ -2224,13 +2325,18 @@ def serve_engine(sops, model):
     }
 
 
-def lm_slice_parity(arch=ARCH, changes=None, prompt=40):
+def lm_slice_parity(arch=ARCH, changes=None, prompt=40, batch=2):
     """Full width cut by ``changes`` (default: to 2 layers), float32: the same weights on
     the card and the CPU.
 
-    Prefill logits and every cache leaf for 2 prompts of ``prompt``
+    Prefill logits and every cache leaf for ``batch`` prompts of ``prompt``
     positions, then 4 decode steps on equal tokens, then (a token-only
-    model) the engine on the card against sequential generation.
+    model without MoE) the engine on the card against sequential
+    generation; an MoE model's capacity drops depend on which streams
+    share a decode step, so its engine and a stream alone may route
+    differently, as the reference's do.  The weights are drawn on the
+    card (the CPU's truncated-normal draw takes tens of seconds a GB) and
+    copied to the CPU.
     """
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -2239,9 +2345,9 @@ def lm_slice_parity(arch=ARCH, changes=None, prompt=40):
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = dataclasses.replace(get_config(arch), dtype="float32", **(changes or {"num_layers": 2}))
-    cpu = M.init_model(torch.Generator().manual_seed(1), cfg)
-    gpu = M.LM(tree_map(lambda t: t.to("cuda"), cpu.tree()), cfg)
-    inputs = serve.make_inputs(cfg, 2, prompt, 2, "cpu")
+    gpu = M.init_model(torch.Generator("cuda").manual_seed(1), cfg)
+    cpu = M.LM(tree_map(lambda t: t.to("cpu"), gpu.tree()), cfg)
+    inputs = serve.make_inputs(cfg, batch, prompt, 2, "cpu")
     tokens, vision = inputs["tokens"], inputs.get("vision_embeds")
     lc, cc = M.prefill(cpu, tokens, max_len=prompt + 4, vision_embeds=vision)
     lg, cg = M.prefill(gpu, tokens.cuda(), max_len=prompt + 4,
@@ -2278,7 +2384,8 @@ def lm_slice_parity(arch=ARCH, changes=None, prompt=40):
                                                        for y in tree_leaves(cc))),
              f"the cache after decode differs by {out['decode_cache']}")
     out["differing_tokens"] = len(differing)
-    if cfg.arch_type in ("vlm", "audio"):  # the engine covers token-only archs
+    out["engine"] = cfg.arch_type not in ("vlm", "audio", "moe")
+    if not out["engine"]:  # the engine covers token-only archs; see above for MoE
         return out
 
     # the engine on the card = sequential generation (tests/test_serving.py)
@@ -2301,10 +2408,10 @@ def _attn_inputs(B, Hq, Hkv, S, hd, dtype, seed):
             for H in (Hq, Hkv, Hkv)]
 
 
-def flash_parity(fops, fref):
+def flash_parity(fops, fref, cases=FLASH_CASES):
     """flash_attention against its plain version, forward (`ref.kernel_errors`)."""
     worst = {}
-    for B, Hq, Hkv, S, hd, causal, window, dtype in FLASH_CASES:
+    for B, Hq, Hkv, S, hd, causal, window, dtype in cases:
         q, k, v = _attn_inputs(B, Hq, Hkv, S, hd, dtype, seed=S + hd)
         out = fops.flash_attention(q, k, v, causal=causal, window=window)
         elem, row, max_abs = fref.kernel_errors(out, q, k, v, causal=causal, window=window)
@@ -2319,11 +2426,17 @@ def flash_parity(fops, fref):
     return worst
 
 
-def xent_parity(xops, xref):
-    """fused_xent against its plain version, float32 and bf16 (`ref.kernel_errors`)."""
+def xent_parity(xops, xref, cases=None):
+    """fused_xent against its plain version, float32 and bf16 (`ref.kernel_errors`).
+
+    ``cases`` (T, d, V, dtype); by default XENT_CASES in both types and the
+    training shape in bf16.
+    """
     worst = {}
-    cases = [(T, d, V, dt) for T, d, V in XENT_CASES for dt in (torch.float32, torch.bfloat16)]
-    for T, d, V, dtype in cases + [(*XENT_PATH, torch.bfloat16)]:
+    if cases is None:
+        cases = [(T, d, V, dt) for T, d, V in XENT_CASES for dt in (torch.float32, torch.bfloat16)]
+        cases.append((*XENT_PATH, torch.bfloat16))
+    for T, d, V, dtype in cases:
         g = torch.Generator("cuda").manual_seed(T + V)
         x = torch.randn(T, d, generator=g, device="cuda").to(dtype)
         w = (torch.randn(d, V, generator=g, device="cuda") * d**-0.5).to(dtype)
@@ -2377,9 +2490,9 @@ def flash_timing(fops, fref, shape=FLASH_PATH, window=0):
                      f"{f' window={window}' if window else ''} bf16"}
 
 
-def xent_timing(xops, xref):
-    """Kernel, plain, cuBLAS-product and bound times at the training shape, bf16."""
-    T, d, V = XENT_PATH
+def xent_timing(xops, xref, shape=XENT_PATH):
+    """Kernel, plain, cuBLAS-product and bound times at ``shape`` (the training shape), bf16."""
+    T, d, V = shape
     g = torch.Generator("cuda").manual_seed(0)
     x = torch.randn(T, d, generator=g, device="cuda").to(torch.bfloat16)
     w = (torch.randn(d, V, generator=g, device="cuda") * d**-0.5).to(torch.bfloat16)
@@ -2461,7 +2574,7 @@ def train_lm(fops, xops):
 
 
 def dense_slice_parity():
-    """Full width, 2 layers, float32, batch 1 x 256: card vs CPU, one train step."""
+    """Full width, 2 layers, float32, batch 1 x 128: card vs CPU, one train step."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokenDataset
     from repro_torch.launch.steps import make_train_step
@@ -2469,9 +2582,9 @@ def dense_slice_parity():
     from repro_torch.tree import tree_leaves, tree_map
 
     cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=2, dtype="float32")
-    cpu = M.init_model(torch.Generator().manual_seed(1), cfg)
-    gpu = M.LM(tree_map(lambda t: t.to("cuda", copy=True), cpu.tree()), cfg)
-    host = SyntheticTokenDataset(cfg.vocab, 256, 1, seed=2).sample(np.random.default_rng(2))
+    gpu = M.init_model(torch.Generator("cuda").manual_seed(1), cfg)  # a CPU draw: tens of s
+    cpu = M.LM(tree_map(lambda t: t.to("cpu", copy=True), gpu.tree()), cfg)
+    host = SyntheticTokenDataset(cfg.vocab, 128, 1, seed=2).sample(np.random.default_rng(2))
     results = []
     for model, dev in ((gpu, "cuda"), (cpu, "cpu")):
         batch = {name: torch.as_tensor(host[name], device=dev) for name in ("tokens", "labels")}
@@ -2482,18 +2595,14 @@ def dense_slice_parity():
             p.grad = None
         opt, step = make_train_step(cfg, 3e-4)
         model, _, metrics = step(model, opt.init(model.tree()), batch)
-        results.append((float(loss.detach()), [g.cpu() for g in grads],
-                        [p.cpu() for p in tree_leaves(model.tree())], float(metrics["loss"])))
+        results.append((float(loss.detach()), grads, tree_leaves(model.tree()),
+                        float(metrics["loss"])))
     (lg, gg, pg, mg), (lc, gc, pc, mc) = results
-    out = {"loss": abs(lg - lc), "step_loss": abs(mg - mc),
-           "grads": max(_err(x, y) for x, y in zip(gg, gc)),
-           "params": max(_err(x, y) for x, y in zip(pg, pc))}
     _require(abs(lg - lc) <= LM_TOL * (1 + abs(lc)), f"loss {lg} on the card, {lc} on the CPU")
     _require(abs(mg - mc) <= LM_TOL * (1 + abs(mc)), "train step loss differs")
-    for name, xs, ys in (("gradient", gg, gc), ("parameter", pg, pc)):
-        for i, (x, y) in enumerate(zip(xs, ys)):
-            _require(_within(x, y, LM_TOL), f"{name} leaf {i} differs by {_err(x, y)}")
-    return out
+    return {"loss": abs(lg - lc), "step_loss": abs(mg - mc),
+            "grads": _leaves_within(gg, gc, LM_TOL, "gradient"),
+            "params": _leaves_within(pg, pc, LM_TOL, "parameter")}
 
 
 class _RoutingRecorder:
@@ -2622,8 +2731,9 @@ def _serve_bounds(cfg, B, S, gen, experts_used=None):
     return bounds
 
 
-def attn_serve_launcher(fops, arch, B, S, gen):
-    """The launcher's path at ``arch``'s published config: batch B, prompt S, ``gen`` tokens.
+def attn_serve_launcher(fops, arch, B, S, gen, changes=None):
+    """The launcher's path at ``arch``'s published config (cut in depth by ``changes``):
+    batch B, prompt S, ``gen`` tokens.
 
     S counts every prompt position: a vlm prompt's are its vision
     embeddings and then text tokens, an audio prompt's are frames of K
@@ -2638,7 +2748,7 @@ def attn_serve_launcher(fops, arch, B, S, gen):
     from repro_torch.models import model as M
     from repro_torch.models import moe as moe_lib
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(changes or {}))
     t0 = time.perf_counter()
     model = M.init_model(torch.Generator("cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
@@ -2806,7 +2916,7 @@ def family_serve_phase(tag, fops, fref):
         torch.cuda.empty_cache()
     for arch, (changes, prompt) in FAMILY_PARITY.items():
         lm = lm_slice_parity(arch, changes, prompt)
-        cut = ", ".join(f"{k} {v}" for k, v in changes.items())
+        cut = _cut(changes)
         engine_note = "; engine = sequential on the card" if arch == FAMILY_ENGINE_ARCH else ""
         print(
             f"slice parity: {arch} full width, {cut}, float32, 2 prompts of {prompt}, card vs "
@@ -3006,7 +3116,7 @@ def family_train(sops, fops, xops, arch, changes, seq):
     return out
 
 
-def family_train_parity(arch, changes, seq=256):
+def family_train_parity(arch, changes, seq=128):
     """Full width cut by ``changes``, float32, batch 1 x ``seq`` text tokens: one train
     step on the card and on the CPU from the same weights and batch."""
     from repro_torch.configs import get_config
@@ -3026,17 +3136,14 @@ def family_train_parity(arch, changes, seq=256):
         opt, step = make_train_step(cfg, 3e-4)
         model, _, metrics = step(model, opt.init(model.tree()),
                                  {k: v.to(dev) for k, v in host.items()})
-        results.append(({k: float(v) for k, v in metrics.items()},
-                        [p.cpu() for p in tree_leaves(model.tree())]))
+        results.append(({k: float(v) for k, v in metrics.items()}, tree_leaves(model.tree())))
     (mg, pg), (mc, pc) = results
     _require(sorted(mg) == sorted(mc), f"{arch}: metric keys {sorted(mg)} vs {sorted(mc)}")
     for k in mc:
         _require(abs(mg[k] - mc[k]) <= LM_TOL * (1 + abs(mc[k])),
                  f"{arch}: {k} {mg[k]} on the card, {mc[k]} on the CPU")
-    for i, (x, y) in enumerate(zip(pg, pc)):
-        _require(_within(x, y, LM_TOL), f"{arch}: parameter leaf {i} differs by {_err(x, y)}")
     return {"metrics": {k: abs(mg[k] - mc[k]) for k in mc},
-            "params": max(_err(x, y) for x, y in zip(pg, pc))}
+            "params": _leaves_within(pg, pc, LM_TOL, f"{arch}: parameter")}
 
 
 def lm_checkpoints():
@@ -3057,6 +3164,27 @@ def lm_checkpoints():
         for x, y in zip(tree_leaves(back), tree_leaves(tree)):
             _require(x.dtype == y.dtype and torch.equal(x, y), f"{arch}: a restored leaf differs")
     return list(ARCH_IDS)
+
+
+def _print_family_train(r, tag):
+    print(
+        f"train: {r['arch']} {r['layers']} layers bf16 remat, {r['params']} params, batch "
+        f"{FAMILY_TRAIN_BATCH} x {r['positions']} positions: walls "
+        f"{[round(x, 3) for x in r['step_s']]} s; median after the first "
+        f"{r['step_s_median']:.3f} s = {r['tokens_per_s']:.0f} positions/s, 6N share "
+        f"{r['six_n_share']:.4f} of 989 TFLOP/s; peak {r['peak_gb']:.2f} GB; losses "
+        f"{[round(x, 4) for x in r['losses']]}; launches {json.dumps(r['launches'])}; "
+        f"every parameter changed; {r['wall_s']:.1f} s with init {tag}"
+    )
+
+
+def _cut(changes):
+    return ", ".join(f"{k} {v}" for k, v in changes.items())
+
+
+def _label(arch, changes):
+    """The pure mamba2 family runs at a hybrid's widths: name it by its family."""
+    return f"pure mamba2 at {arch}'s widths" if changes.get("arch_type") == "ssm" else arch
 
 
 def lm_train_phase(tag, sops, sref, fops, xops):
@@ -3087,15 +3215,7 @@ def lm_train_phase(tag, sops, sref, fops, xops):
     for arch, changes, seq in FAMILY_TRAIN:
         r = family_train(sops, fops, xops, arch, changes, seq)
         trained[arch] = r
-        print(
-            f"train: {arch} {r['layers']} layers bf16 remat, {r['params']} params, batch "
-            f"{FAMILY_TRAIN_BATCH} x {r['positions']} positions: walls "
-            f"{[round(x, 3) for x in r['step_s']]} s; median after the first "
-            f"{r['step_s_median']:.3f} s = {r['tokens_per_s']:.0f} positions/s, 6N share "
-            f"{r['six_n_share']:.4f} of 989 TFLOP/s; peak {r['peak_gb']:.2f} GB; losses "
-            f"{[round(x, 4) for x in r['losses']]}; launches {json.dumps(r['launches'])}; "
-            f"every parameter changed; {r['wall_s']:.1f} s with init {tag}"
-        )
+        _print_family_train(r, tag)
         if "profiled" in r:
             p = r["profiled"]
             print(
@@ -3111,8 +3231,8 @@ def lm_train_phase(tag, sops, sref, fops, xops):
     parity = {}
     for arch, changes in FAMILY_TRAIN_PARITY.items():
         parity[arch] = e = family_train_parity(arch, changes)
-        cut = ", ".join(f"{k} {v}" for k, v in changes.items())
-        print(f"slice parity: {arch} full width, {cut}, float32, batch 1 x 256, one train step "
+        cut = _cut(changes)
+        print(f"slice parity: {arch} full width, {cut}, float32, batch 1 x 128, one train step "
               f"on the card vs the CPU: params {e['params']:.3e}, metrics "
               + ", ".join(f"{k} {v:.3e}" for k, v in e["metrics"].items()) + f" (tol {LM_TOL})")
     print(f"slice 14 parity in {time.perf_counter() - t1:.1f} s")
@@ -3121,6 +3241,86 @@ def lm_train_phase(tag, sops, sref, fops, xops):
           f"the last restores to the parameters exactly")
     print(f"slice 14 (training of every family) in {time.perf_counter() - t0:.1f} s")
     return {"scan_bwd_worst": worst, "scan_bwd_row": row, "trained": trained, "parity": parity}
+
+
+def frontier_phase(tag, sops, fops, fref, xops, xref):
+    """Slice 16: flash_attention at head_dim 112 and fused_xent at the new training shapes
+    against their plain versions and timed; Llama-3.1-405B and Kimi-K2 served at published
+    width cut in depth; card vs CPU of both, of the pure mamba2 family, and of one
+    Granite-8B and Minitron-8B train step; their training walls."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    flash_worst = flash_parity(fops, fref, FRONTIER_FLASH_CASES)
+    for case, e in flash_worst.items():
+        print(f"kernel parity: flash_attention {case}: max abs err {e['abs']:.3e}, "
+              f"{e['elem']:.3f} of the element allowance, max row err {e['row']:.3e} (tol "
+              f"{fref.ROW_TOL}) {tag}")
+    xent_worst = xent_parity(xops, xref, [(*shape, torch.bfloat16)
+                                          for shape in FRONTIER_XENT_PATHS.values()])
+    for case, e in xent_worst.items():
+        print(f"kernel parity: fused_xent {case}: max abs err {e['abs']:.3e}, "
+              f"{e['elem']:.3f} of the token allowance, {e['total']:.3f} of the summed one {tag}")
+    flash_rows = {arch: flash_timing(fops, fref, shape)
+                  for arch, shape in FRONTIER_FLASH_PATHS.items()}
+    for arch, row in flash_rows.items():
+        _print_flash_row(row, f"{arch}'s prefill", tag)
+    xent_rows = {arch: xent_timing(xops, xref, shape)
+                 for arch, shape in FRONTIER_XENT_PATHS.items()}
+    for arch, r in xent_rows.items():
+        print(
+            f"kernel timing: fused_xent {r['shape']} ({arch}'s training loss): {r['ms']:.3f} ms "
+            f"({r['flops'] / r['ms'] / 1e9:.0f} TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of the "
+            f"bound), plain {r['plain_ms']:.3f} ms, cuBLAS x @ w {r['gemm_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms by {r['bound_by']} (bytes {r['bytes_ms']:.3f} ms; flop "
+            f"{r['flop_ms']:.3f} ms at 989 TFLOP/s) {tag}"
+        )
+    torch.cuda.empty_cache()
+    print(f"slice 16 kernels: parity and timing in {time.perf_counter() - t0:.1f} s {tag}")
+
+    t1 = time.perf_counter()
+    served = {}
+    for arch, changes, B, S, gen in FRONTIER_SERVE:
+        model, served[arch] = attn_serve_launcher(fops, arch, B, S, gen, changes)
+        _print_launcher(served[arch], tag)
+        del model
+        torch.cuda.empty_cache()
+    print(f"slice 16 serving in {time.perf_counter() - t1:.1f} s {tag}")
+
+    t1 = time.perf_counter()
+    for arch, changes, batch, prompt in FRONTIER_PARITY:
+        t2 = time.perf_counter()
+        lm = lm_slice_parity(arch, changes, prompt, batch)
+        torch.cuda.empty_cache()
+        print(
+            f"slice parity: {_label(arch, changes)} full width, {_cut(changes)}, float32, "
+            f"{batch} prompt(s) of {prompt}, card vs CPU: prefill logits "
+            f"{lm['prefill_logits']:.3e}, cache {lm['cache']:.3e} (tol {LM_TOL}); 4 decode "
+            f"steps: logits {lm['decode_logits']:.3e}, cache {lm['decode_cache']:.3e}, "
+            f"{lm['differing_tokens']} differing tokens"
+            f"{'; engine = sequential on the card' if lm['engine'] else ''}; in "
+            f"{time.perf_counter() - t2:.1f} s {tag}"
+        )
+    for arch, changes, seq in FRONTIER_TRAIN_PARITY:
+        t2 = time.perf_counter()
+        e = family_train_parity(arch, changes, seq)
+        torch.cuda.empty_cache()
+        print(f"slice parity: {_label(arch, changes)} full width, {_cut(changes)}, float32, "
+              f"batch 1 x {seq}, one train step on the card vs the CPU: params "
+              f"{e['params']:.3e}, metrics "
+              + ", ".join(f"{k} {v:.3e}" for k, v in e["metrics"].items())
+              + f" (tol {LM_TOL}); in {time.perf_counter() - t2:.1f} s {tag}")
+    print(f"slice 16 parity in {time.perf_counter() - t1:.1f} s {tag}")
+
+    trained = {}
+    for arch, changes, seq in FRONTIER_TRAIN:
+        trained[arch] = family_train(sops, fops, xops, arch, changes, seq)
+        _print_family_train(trained[arch], tag)
+    print(f"slice 16 (405B, Kimi-K2, pure mamba2, Granite/Minitron training) in "
+          f"{time.perf_counter() - t0:.1f} s {tag}")
+    return {"flash_worst": flash_worst, "xent_worst": xent_worst,
+            "flash_rows": flash_rows, "xent_rows": xent_rows,
+            "launches_serving": {arch: r["launches"] for arch, r in served.items()},
+            "launches_training": {arch: r["launches"] for arch, r in trained.items()}}
 
 
 def _fused_rung_launches(iterations):
@@ -3256,10 +3456,12 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     gpu = _gpu_line()
     tag = f"[{gpu}]"
     print(f"gpu: {gpu}")
-    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{torch.get_num_threads()} CPU threads of {os.cpu_count()} cores")
 
     sources = ("recurrent_scan.cu", "selective_scan.cu", "selective_scan_bwd.cu",
                "flash_attention.cu", "fused_xent.cu")
@@ -3275,6 +3477,7 @@ def main():
                   f"stored / {k['spill_loads']} B loaded (nvcc -Xptxas -v)")
 
     # ---- slice 1: rec-IPPO (linear core)
+    t0 = time.perf_counter()
     worst = kernel_parity(ops, ref)
     print(
         f"kernel parity: max abs err forward {worst['forward']:.3e} (tol {FWD_TOL}), "
@@ -3309,6 +3512,7 @@ def main():
     print(f"slice parity: one update on the card vs the CPU, max abs param diff "
           f"{param_err:.3e}, loss diff {loss_err:.3e} (tol {SLICE_TOL})")
     del system, state
+    print(f"slice 1 (rec-IPPO) in {time.perf_counter() - t0:.1f} s")
 
     # ---- slice 6: the paper's headline loop, feed-forward IPPO/MAPPO and rec-MAPPO
     t0 = time.perf_counter()
@@ -3373,6 +3577,7 @@ def main():
     benched = bench_phase(tag, ops, ref)
 
     # ---- slice 2: Falcon-Mamba-7B greedy serving
+    t0 = time.perf_counter()
     scan_worst = scan_parity(sops, sref)
     for case, e in scan_worst.items():
         print(f"kernel parity: selective_scan {case}: max abs err y {e['y']:.3e}, "
@@ -3416,6 +3621,7 @@ def main():
         f"{lm['decode_cache']:.3e}, {lm['differing_tokens']} differing tokens; engine = "
         f"sequential on the card"
     )
+    print(f"slice 2 (Falcon-Mamba-7B serving) in {time.perf_counter() - t0:.1f} s")
 
     # ---- slice 3: InternLM2-1.8B dense LM training
     t0 = time.perf_counter()
@@ -3473,7 +3679,7 @@ def main():
     t0 = time.perf_counter()
     dense = dense_slice_parity()
     print(
-        f"slice parity: {DENSE_ARCH} full width, 2 layers, float32, batch 1 x 256, card vs "
+        f"slice parity: {DENSE_ARCH} full width, 2 layers, float32, batch 1 x 128, card vs "
         f"CPU: loss {dense['loss']:.3e}, grads {dense['grads']:.3e}, params after one step "
         f"{dense['params']:.3e}, step loss {dense['step_loss']:.3e} (tol {LM_TOL}) in "
         f"{time.perf_counter() - t0:.1f} s"
@@ -3489,6 +3695,14 @@ def main():
     lm = lm_train_phase(tag, sops, sref, fops, xops)
     trained = {arch: r["launches"] for arch, r in lm["trained"].items()}
     bwd_row = lm["scan_bwd_row"]
+
+    # ---- slice 16: Llama-3.1-405B and Kimi-K2 at published width, pure mamba2, Granite and
+    # Minitron training
+    frontier = frontier_phase(tag, sops, fops, fref, xops, xref)
+    trained.update(frontier["launches_training"])
+    flash_worst.update(frontier["flash_worst"])
+    xent_worst.update(frontier["xent_worst"])
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s {tag}")
 
     main_row = next(r for r in rows if (r["B"], r["direction"]) == (64, "forward"))
     scan_row = scan_rows[0]
@@ -3572,7 +3786,8 @@ def main():
         "replaces": "src/repro/kernels/flash_attention/kernel.py:90",
         "launches": lm_train_flash,
         "launches_serving": {**attn_serving["launches_serving"],
-                             **family_serving["launches_serving"]},
+                             **family_serving["launches_serving"],
+                             **frontier["launches_serving"]},
         "launches_training": {arch: n["flash_attention"] for arch, n in trained.items()},
         "max_abs_err": max(e["abs"] for c, e in flash_worst.items() if "float32" in c),
         "max_abs_err_bf16": max(e["abs"] for c, e in flash_worst.items() if "bfloat16" in c),
@@ -3580,9 +3795,11 @@ def main():
         **{key: flash_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms", "shape")},
         "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-        "by_shape": [flash_row, attn_serving["serving_row"], *family_serving["serving_rows"]],
-        "design": "bf16 head_dim 64/128: wgmma fed by a TMA/mbarrier ring, producer warpgroup; "
-                  "bf16 head_dim 32/80: WMMA 16x16x16; float32: SIMT",
+        "by_shape": [flash_row, attn_serving["serving_row"], *family_serving["serving_rows"],
+                     *frontier["flash_rows"].values()],
+        "design": "bf16 head_dim 64/112/128: wgmma fed by a TMA/mbarrier ring, producer "
+                  "warpgroup (112 computed at 128 columns, TMA zero-filling 112-127); bf16 "
+                  "head_dim 32/80: WMMA 16x16x16; float32: SIMT",
         "gpu": gpu,
     }, {
         "name": "fused_xent",
@@ -3598,6 +3815,7 @@ def main():
         "max_abs_err_bf16": max(e["abs"] for c, e in xent_worst.items() if "bfloat16" in c),
         **{key: xent_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                           "library_ms", "gemm_ms", "shape")},
+        "by_shape": [xent_row, *frontier["xent_rows"].values()],
         "gpu": gpu,
     }]}))
     print(json.dumps({"ok": True, "device": {

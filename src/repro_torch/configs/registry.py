@@ -1,12 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution for the archs the port runs.
 
 `KNOWN_ARCH_IDS` is the JAX registry's list; `ARCH_IDS` the archs whose
-configs the port carries: every one that fits one card (dense, moe,
-mamba1, the mamba2 hybrid, vlm and audio).
-llama3-405b and kimi-k2-1t-a32b are left out: their published configs
-shard over a mesh the port does not have.  A known arch that is not in
-`ARCH_IDS` raises `NotImplementedError` naming it; an unknown one raises
-`KeyError`.  What the port runs of each family is `models.model.PORTED`.
+configs the port carries: all ten, the same list.  llama3-405b and
+kimi-k2-1t-a32b carry no ``sharding`` field: the reference shards them
+over a mesh, and the port runs on one card, where their published widths
+run cut in depth.  An unknown arch raises `KeyError`.  What the port runs
+of each family is `models.model.PORTED`.
 """
 from __future__ import annotations
 
@@ -25,25 +24,12 @@ KNOWN_ARCH_IDS: Tuple[str, ...] = (
     "musicgen-large",
     "llama3-405b",
 )
-ARCH_IDS: Tuple[str, ...] = (
-    "minitron-8b",
-    "internlm2-1.8b",
-    "olmoe-1b-7b",
-    "granite-8b",
-    "falcon-mamba-7b",
-    "zamba2-2.7b",
-    "llava-next-mistral-7b",
-    "musicgen-large",
-)
+ARCH_IDS: Tuple[str, ...] = KNOWN_ARCH_IDS  # every arch is ported
 
 
 def _module(arch_id: str):
     if arch_id not in KNOWN_ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {KNOWN_ARCH_IDS}")
-    if arch_id not in ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to PyTorch yet; ported: {ARCH_IDS}"
-        )
     name = arch_id.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -26,8 +26,8 @@
 // causal) that is 2.75e11 flop, 0.28 ms at 989 TFLOP/s on bf16 tensor cores;
 // the bytes (q, k, v read once, out written once: 201 MB in bf16) take
 // 0.06 ms.  What the design does about the operations:
-//   * bf16, head_dim 64 and 128 (the training path's 128): the products run
-//     as wgmma with float32 accumulators in registers (hopper.cuh).  A block
+//   * bf16, head_dim 64, 112 and 128 (the training path's 128): the products
+//     run as wgmma with float32 accumulators in registers (hopper.cuh).  A block
 //     is two consumer warpgroups of 64 query rows and one producer
 //     warpgroup, which gives its registers to the consumers (setmaxnreg).
 //     The producer loads the block's Q tile once and streams 128-key tiles
@@ -48,6 +48,12 @@
 //     reads zeros, never the next head.  Blocks start with the last query
 //     tiles, which have the most kv tiles under a causal mask, so the grid's
 //     tail is short tiles.
+//     head_dim 112 (Kimi-K2's 7168 / 64) is computed at 128 columns: the
+//     tensor maps declare the row as 112 columns (224 B, a multiple of 16),
+//     so TMA fills columns 112-127 of every Q, K and V box with zeros; S is
+//     unchanged, O's padding columns come out zero, only 112 columns are
+//     stored, and the scale is 1/sqrt(112).  The padding costs 1 - 112/128
+//     of the tensor-core work and none of the bytes.
 //   * bf16, head_dim 32 and 80 (no training path uses them): WMMA 16x16x16,
 //     64 query rows a block, one warp per 16 rows, 64-key tiles staged with
 //     plain loads, S and P through shared memory, the output accumulator in
@@ -487,15 +493,19 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&p)
   }
 }
 
+// the columns the wgmma design computes at: head_dim rounded up to a 64-column chunk
+__host__ __device__ constexpr int wg_cols(int hd) { return (hd + 63) / 64 * 64; }
+
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
                              const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
                              int Hq, int Hkv, int S, int causal, int window, float scale_log2) {
-  static_assert(HD % 64 == 0, "HD must be a multiple of 64 (one swizzle row a chunk)");
-  using P = WgPlan<HD>;
-  constexpr int kChunks = HD / 64;
+  static_assert(HD % 16 == 0, "HD must be a multiple of 16 (8 columns a store, 16 a k-step)");
+  constexpr int HDP = wg_cols(HD);  // columns HD .. HDP - 1 are TMA's zero fill
+  using P = WgPlan<HDP>;
+  constexpr int kChunks = HDP / 64;  // one swizzle row of 64 columns a chunk
   extern __shared__ unsigned char wg_smem_raw[];
   // K and V have rings of their own: K_i is free once S_i is done, V_i once P_i V_i is
   __shared__ uint64_t q_full, k_full[kWgStages], k_empty[kWgStages], v_full[kWgStages],
@@ -530,7 +540,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (warp >= 4 * kWgGroups) {  // the producer warpgroup: one thread issues every copy
     hopper::regs_dealloc<kWgProducerRegs>();
     if (threadIdx.x == 128 * kWgGroups) {
-      hopper::mbar_arrive_expect_tx(&q_full, kWgBQ * HD * 2);
+      hopper::mbar_arrive_expect_tx(&q_full, kWgBQ * HDP * 2);  // a box's bytes, fill included
       for (int c = 0; c < kChunks; ++c)
         hopper::tma_load_3d(smem + c * kWgBQ * 128, &q_map, &q_full, 64 * c, q0, bh_q);
       for (int i = 0; i < n_tiles; ++i) {
@@ -570,9 +580,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     return hopper::desc(hopper::smem_addr(smem + P::v + s * P::tile), kWgBKV * 128, 1024);
   };
 
-  float o[HD / 2];
+  float o[HDP / 2];
 #pragma unroll
-  for (int j = 0; j < HD / 2; ++j) o[j] = 0.0f;
+  for (int j = 0; j < HDP / 2; ++j) o[j] = 0.0f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;  // m in log2 units
   uint32_t p[kWgBKV / 4];  // P_{i-1}: the A fragments of the product in flight
   hopper::mbar_wait(&q_full, 0);
@@ -593,7 +603,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     float sc[kWgBKV / 2];
     my_turn();
     hopper::wgmma_fence();
-    issue_s<HD>(sc, q_desc, k_desc(0));
+    issue_s<HDP>(sc, q_desc, k_desc(0));
     hopper::wgmma_commit();
     your_turn();
     hopper::wgmma_wait<0>();
@@ -612,12 +622,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     float sc[kWgBKV / 2];
     my_turn();
     hopper::wgmma_fence();
-    issue_s<HD>(sc, q_desc, k_desc(s));
+    issue_s<HDP>(sc, q_desc, k_desc(s));
     hopper::wgmma_commit();
     hopper::fence_regs(o);
     hopper::fence_regs(p);
     hopper::wgmma_fence();
-    issue_pv<HD>(o, p, v_desc(sp));
+    issue_pv<HDP>(o, p, v_desc(sp));
     hopper::wgmma_commit();
     your_turn();
     hopper::wgmma_wait<1>();  // S_i is done; P_{i-1} V_{i-1} may still run
@@ -631,7 +641,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::fence_regs(p);
     if (lane == 0) hopper::mbar_arrive(&v_empty[sp]);  // and with V_{i-1}
 #pragma unroll
-    for (int j = 0; j < HD / 2; ++j) o[j] *= (j & 2) ? a1 : a0;
+    for (int j = 0; j < HDP / 2; ++j) o[j] *= (j & 2) ? a1 : a0;
     pack_p(sc, p, a0, a1, l0, l1);
   }
   {  // the last tile's O += P V
@@ -641,7 +651,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::fence_regs(p);
     my_turn();
     hopper::wgmma_fence();
-    issue_pv<HD>(o, p, v_desc(sp));
+    issue_pv<HDP>(o, p, v_desc(sp));
     hopper::wgmma_commit();
     if (wg == 0) your_turn();  // group 1's last turn follows; nobody waits after it
     hopper::wgmma_wait<0>();
@@ -650,7 +660,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (lane == 0) hopper::mbar_arrive(&v_empty[sp]);
   }
 
-  // the quad's partial sums, then out = O / max(l, 1e-30), rounded once
+  // the quad's partial sums, then out = O / max(l, 1e-30), rounded once; the
+  // padding columns HD .. HDP - 1 are not stored
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -658,11 +669,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const float n0 = fmaxf(l0, 1e-30f), n1 = fmaxf(l1, 1e-30f);
   bf16* oh = out + static_cast<size_t>(bh_q) * S * HD;
 #pragma unroll
-  for (int j = 0; j < HD / 2; j += 2) {
+  for (int j = 0; j < HDP / 2; j += 2) {
     const int row = row0 + ((j & 2) ? 8 : 0);
+    const int col = 8 * (j / 4) + kc;
     const float n = (j & 2) ? n1 : n0;
-    if (row < S)
-      *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(row) * HD + 8 * (j / 4) + kc) =
+    if (row < S && col < HD)
+      *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(row) * HD + col) =
           hopper::pack_bf16(o[j] / n, o[j + 1] / n);
   }
 }
@@ -698,7 +710,8 @@ int launch_wmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, i
 template <int HD>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Hq,
                  int Hkv, int S, int causal, int window, float scale, cudaStream_t stream) {
-  // 3-d maps (HD, S, B * H), innermost first: a box never crosses into the next head
+  // 3-d maps (HD, S, B * H), innermost first: a box never crosses into the next head,
+  // and at HD = 112 the second 64-column box reads columns 112-127 as zeros
   CUtensorMap q_map, k_map, v_map;
   const uint64_t q_dims[3] = {HD, static_cast<uint64_t>(S), static_cast<uint64_t>(B) * Hq};
   const uint64_t kv_dims[3] = {HD, static_cast<uint64_t>(S), static_cast<uint64_t>(B) * Hkv};
@@ -708,7 +721,7 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, 
       !hopper::make_map(&k_map, k, 3, kv_dims, strides, kv_box) ||
       !hopper::make_map(&v_map, v, 3, kv_dims, strides, kv_box))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int bytes = WgPlan<HD>::bytes;
+  constexpr int bytes = WgPlan<wg_cols(HD)>::bytes;
   cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -719,11 +732,11 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// head_dim 64 and 128 take the wgmma design, 32 and 80 the WMMA one
+// head_dim 64, 112 (padded to 128) and 128 take the wgmma design, 32 and 80 the WMMA one
 template <int HD>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Hq, int Hkv,
                 int S, int causal, int window, float scale, cudaStream_t stream) {
-  if constexpr (HD % 64 == 0)
+  if constexpr (HD == 64 || HD == 112 || HD == 128)
     return launch_wgmma<HD>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, stream);
   else
     return launch_wmma<HD>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, stream);
@@ -754,6 +767,7 @@ int launch(const T* q, const T* k, const T* v, T* out, int B, int Hq, int Hkv, i
     case 32: return launch_hd<T, 32>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
     case 64: return launch_hd<T, 64>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
     case 80: return launch_hd<T, 80>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
+    case 112: return launch_hd<T, 112>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
     case 128: return launch_hd<T, 128>(q, k, v, out, B, Hq, Hkv, S, causal, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_vjp
 from repro_torch.roofline.op_cost import custom_op
 
-KERNEL_HEAD_DIMS = (32, 64, 80, 128)  # the head_dim the kernel is instantiated for
+KERNEL_HEAD_DIMS = (32, 64, 80, 112, 128)  # the head_dim the kernel is instantiated for
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
 

@@ -1,10 +1,12 @@
 """LM backbone (counterpart of `repro.models.model`).
 
 `PORTED` says what the port runs of each family: ``dense``, ``moe``,
-``mamba1``, ``hybrid`` (zamba2: mamba2 layers and one shared attention
-block), ``vlm`` and ``audio`` train and serve.  `_require_ported` is the
-one gate, and other families (a pure-SSM ``mamba2``, which no config of
-the repo uses) raise `NotImplementedError` naming theirs.  vlm and audio
+``mamba1``, ``mamba2`` (a pure-SSM stack of mamba2 layers, which no config
+of the repo uses), ``hybrid`` (zamba2: mamba2 layers and one shared
+attention block), ``vlm`` and ``audio`` train and serve.  `_require_ported`
+is the one gate: a family outside it raises `NotImplementedError` naming
+its own.  A pure mamba2 model runs the hybrid's layer loops with no shared
+block, and its cache is the hybrid's without ``kv``.  vlm and audio
 run the dense layers (`core_kind`): a vlm prompt puts its precomputed
 vision embeddings ahead of the text, an audio model sums K codebook
 embeddings a position and has a head a codebook.
@@ -64,7 +66,7 @@ from repro_torch.models.ssm import Mamba1, Mamba2, init_mamba1, init_mamba2
 
 # family -> what the port runs of it
 PORTED = {fam: ("training", "serving")
-          for fam in ("dense", "moe", "mamba1", "hybrid", "vlm", "audio")}
+          for fam in ("dense", "moe", "mamba1", "mamba2", "hybrid", "vlm", "audio")}
 
 
 def family(cfg: ModelConfig) -> str:

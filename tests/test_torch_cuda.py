@@ -507,6 +507,14 @@ def test_smoke_prefill_launches_the_scan_once_a_layer(cuda):
     (4, 32, 32, 2048, 64, True, 0),
     (1, 32, 8, 2917, 128, True, 0),
     (4, 32, 8, 4096, 128, True, 0),
+    # head_dim 112 (Kimi-K2's, computed at 128 columns) at the wgmma design's edges and
+    # Kimi's 64/8 prefill; Llama-3.1-405B's 128/8 (16 query heads a kv head)
+    (1, 4, 2, 127, 112, True, 0),
+    (1, 4, 2, 129, 112, False, 0),
+    (1, 2, 1, 300, 112, True, 70),
+    (1, 64, 8, 37, 112, True, 0),
+    (4, 64, 8, 2048, 112, True, 0),
+    (4, 128, 8, 2048, 128, True, 0),
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, B, Hq, Hkv, S, hd, causal, window,
                                                       dtype):
@@ -523,7 +531,8 @@ def test_flash_attention_kernel_matches_plain_version(cuda, B, Hq, Hkv, S, hd, c
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["granite-8b", "minitron-8b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["granite-8b", "minitron-8b", "olmoe-1b-7b", "llama3-405b",
+                                  "kimi-k2-1t-a32b"])
 def test_smoke_attention_serving_launches_flash_once_a_layer(cuda, arch):
     """Prefill launches the flash kernel once a layer, decode none; card = CPU at 1e-4."""
     from repro_torch.configs import get_smoke_config

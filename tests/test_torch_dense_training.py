@@ -219,19 +219,24 @@ def test_one_train_step_matches(grad_accum):
 
 
 def test_other_families_do_not_train_yet():
-    """Every family a config uses trains (tests/test_torch_lm_training*.py hold
-    them against JAX); the pure-SSM mamba2 model, which no config uses, is
-    the one family outside the port, and is refused at init, in training
-    and in serving."""
+    """Every family trains (tests/test_torch_lm_training*.py and
+    tests/test_torch_mamba2_family.py hold them against JAX), the pure-SSM
+    mamba2 model too, which no config uses and the port once refused: its
+    loss on the reference's weights is JAX's, and its cache is the
+    reference's conv and SSM states."""
     _, model = _model()
     for arch in ("olmoe-1b-7b", "falcon-mamba-7b"):
         other = TM.init_model(torch.Generator().manual_seed(0), get_smoke_config(arch))
         loss, metrics = TM.forward_train(other, params_from_jax(_batch(model.cfg)))
         assert bool(torch.isfinite(loss)) and metrics["loss"] is loss
-    ssm2 = dataclasses.replace(model.cfg, arch_type="ssm", mamba_version=2)
-    with pytest.raises(NotImplementedError, match="'mamba2' family"):
-        TM.LM(model.tree(), ssm2)
-    with pytest.raises(NotImplementedError, match="training of the 'mamba2' family"):
-        TM._require_ported(ssm2, "training")
-    with pytest.raises(NotImplementedError, match="serving of the 'mamba2' family"):
-        TM.init_cache(ssm2, 1, 4, "cpu")
+    jcfg = dataclasses.replace(jax_get_smoke_config("falcon-mamba-7b"), mamba_version=2)
+    tcfg = dataclasses.replace(get_smoke_config("falcon-mamba-7b"), mamba_version=2)
+    params = jax.jit(JM.init_model, static_argnums=1)(jax.random.key(0), jcfg)
+    batch = _batch(tcfg)
+    want, _ = jax.jit(lambda p, b: JM.forward_train(p, b, jcfg))(params, batch)
+    loss, _ = TM.forward_train(lm_params_from_jax(params, tcfg), params_from_jax(batch))
+    _close(loss, want)
+    TM._require_ported(tcfg, "training")
+    cache = TM.init_cache(tcfg, 1, 4, "cpu")
+    assert {k: tuple(v.shape) for k, v in cache.items()} == {
+        k: tuple(v.shape) for k, v in JM.init_cache(jcfg, 1, 4).items()}

@@ -12,8 +12,9 @@ across:
   1e-5, MoE with remat and without;
 * one ``make_train_step`` (params and both Adam moments after it) at 1e-5
   from a state that one JAX step left; MoE also at ``grad_accum=2``;
-* the pure-SSM ``mamba_version=2`` model, which no config uses, still
-  refused.
+* the pure-SSM ``mamba_version=2`` model, which no config uses, trained
+  as the reference trains it (tests/test_torch_mamba2_family.py holds its
+  serving and its train step).
 
 tests/test_torch_lm_training_ssm.py holds the mamba1 and hybrid families
 (and the selective scan's backward), tests/test_torch_lm_training_launch.py
@@ -154,12 +155,18 @@ def test_one_train_step_matches(arch, grad_accum):
 
 
 def test_every_parameter_trains_and_pure_mamba2_stays_refused():
-    for arch in (MOE, VLM, AUDIO, "falcon-mamba-7b", "zamba2-2.7b"):
-        model = TM.init_model(torch.Generator().manual_seed(0), get_smoke_config(arch))
-        assert all(p.requires_grad for p in model.parameters())
-    assert set(TM.PORTED.values()) == {("training", "serving")}
+    """Every family trains; the pure-SSM mamba2 model, once refused, now trains too:
+    every one of its parameters gets a finite gradient (tests/test_torch_mamba2_family.py
+    holds its loss, gradients and train step against JAX)."""
     ssm2 = dataclasses.replace(get_smoke_config("falcon-mamba-7b"), mamba_version=2)
-    with pytest.raises(NotImplementedError, match="the model of the 'mamba2' family"):
-        TM.init_model(torch.Generator().manual_seed(0), ssm2)
-    with pytest.raises(NotImplementedError, match="training of the 'mamba2' family"):
-        TM._require_ported(ssm2, "training")
+    for cfg in [get_smoke_config(a) for a in (MOE, VLM, AUDIO, "falcon-mamba-7b",
+                                               "zamba2-2.7b")] + [ssm2]:
+        model = TM.init_model(torch.Generator().manual_seed(0), cfg)
+        assert all(p.requires_grad for p in model.parameters())
+    assert set(TM.PORTED.values()) == {("training", "serving")} and "mamba2" in TM.PORTED
+    TM._require_ported(ssm2, "training")
+    loss, metrics = TM.forward_train(model, params_from_jax(make_batch(ssm2)))
+    loss.backward()
+    assert sorted(metrics) == ["lm_loss", "loss"]
+    assert all(bool(torch.isfinite(p.grad).all()) and bool(p.grad.any())
+               for p in model.parameters())
