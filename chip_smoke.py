@@ -620,9 +620,11 @@ FRONTIER_PARITY = [("llama3-405b", dict(num_layers=1), 1, 32),
 # (4.04e9, 2.10e9 of them its two 256,000 x 4096 tables)
 FRONTIER_TRAIN = [("granite-8b", dict(num_layers=16), 2048),
                   ("minitron-8b", dict(num_layers=8), 2048)]
-# one float32 train step card vs CPU: (arch, changes, tokens)
-FRONTIER_TRAIN_PARITY = [("granite-8b", dict(num_layers=2), 128),
-                         ("minitron-8b", dict(num_layers=2), 128),
+# one float32 train step card vs CPU: (arch, changes, tokens); one layer each since the
+# slice-17 phase came (2 until then): the CPU's side over Minitron's 256,000-row tables runs
+# 40-180 s as the host's memory traffic allows
+FRONTIER_TRAIN_PARITY = [("granite-8b", dict(num_layers=1), 128),
+                         ("minitron-8b", dict(num_layers=1), 128),
                          ("zamba2-2.7b", PURE_MAMBA2, 300)]
 
 
@@ -3323,6 +3325,93 @@ def frontier_phase(tag, sops, fops, fref, xops, xref):
             "launches_training": {arch: r["launches"] for arch, r in trained.items()}}
 
 
+# slice 17, the multi-card path as a dry run: one (arch, shape) pair traced on the
+# production mesh (16 x 16 fake ranks, published width, every layer); the LM kernels'
+# fake routes held against the kernels at small shapes
+DRYRUN_PAIR = ("llama3-405b", "decode_32k")
+
+
+def _fake_vs_kernel(fn, make):
+    """Outputs of ``fn`` on CUDA tensors from ``make(device)`` and on fake CUDA tensors of
+    the same shapes: (shape, dtype, stride) of each, both ways, and the real outputs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_flatten
+
+    real = fn(*make("cuda"))
+    torch.cuda.synchronize()
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake_args = [mode.from_tensor(t) for t in make("cuda")]
+        fake = fn(*fake_args)
+    meta = [[(tuple(t.shape), t.dtype, t.stride()) for t in tree_flatten(out)[0]]
+            for out in (real, fake)]
+    return meta
+
+
+def dryrun_phase(tag, fops, xops, sops):
+    """Slice 17: `repro_torch.launch.dryrun` on one pair on the card's own torch (it
+    touches no CUDA), and each LM kernel's fake route (what the dry run traces) against
+    the kernel: the same output shapes, dtypes and strides."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    rec = dryrun.dryrun_pair(*DRYRUN_PAIR)
+    bpd, r = rec["bytes_per_device"], rec["roofline"]
+    _require(bpd["arguments"] > 0 and bpd["peak_est"] >= bpd["arguments"],
+             f"dry run bytes {bpd}")
+    _require(rec["cost"]["flops"] > 0 and r["memory_s"] > 0, f"dry run cost {rec['cost']}")
+    print(f"dry run: {rec['arch']} {rec['shape']} on {rec['mesh']} ({rec['chips']} fake "
+          f"ranks) traced in {rec['compile_s']} s: a device holds {bpd['arguments'] / 2**30:.2f} "
+          f"GiB of arguments, peak {bpd['peak_est'] / 2**30:.2f} GiB; compute "
+          f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, collective "
+          f"{r['collective_s'] * 1e3:.3f} ms ({r['dominant']}), useful {r['useful_ratio']:.3f} "
+          f"(dry run, H100 SXM5 datasheet constants)")
+    dist.destroy_process_group()
+
+    def gen(device, seed=0):
+        return torch.Generator(device).manual_seed(seed)
+
+    def flash_args(device):
+        g = gen(device)
+        q = torch.randn(2, 8, 256, 128, generator=g, device=device, dtype=torch.bfloat16)
+        return [q] + [torch.randn(2, 2, 256, 128, generator=g, device=device,
+                                  dtype=torch.bfloat16) for _ in range(2)]
+
+    def xent_args(device):
+        g = gen(device)
+        return [torch.randn(256, 512, generator=g, device=device, dtype=torch.bfloat16),
+                torch.randn(512, 4096, generator=g, device=device, dtype=torch.bfloat16),
+                torch.randint(0, 4096, (256,), generator=g, device=device)]
+
+    def scan_args(device, bwd=False):
+        g = gen(device)
+        b, S, di, N = 2, 64, 256, 16
+        x = torch.randn(b, S, di, generator=g, device=device, dtype=torch.bfloat16)
+        delta = torch.rand(b, S, di, generator=g, device=device) * 0.1
+        A = -torch.rand(di, N, generator=g, device=device)
+        B = torch.randn(b, S, N, generator=g, device=device, dtype=torch.bfloat16)
+        C = torch.randn(b, S, N, generator=g, device=device, dtype=torch.bfloat16)
+        D = torch.ones(di, device=device)
+        extra = [torch.randn(b, S, di, generator=g, device=device, dtype=torch.bfloat16),
+                 torch.randn(b, di, N, generator=g, device=device)] if bwd else []
+        return [x, delta, A, B, C, D, *extra]
+
+    checks = {
+        "flash_attention": (lambda q, k, v: fops.flash_attention(q, k, v), flash_args),
+        "fused_xent": (xops.fused_softmax_xent, xent_args),
+        "selective_scan": (sops.selective_scan, scan_args),
+        "selective_scan_bwd": (sops.selective_scan_bwd, lambda d: scan_args(d, bwd=True)),
+    }
+    for name, (fn, make) in checks.items():
+        real, fake = _fake_vs_kernel(fn, make)
+        _require(real == fake, f"{name}: the kernel gives {real}, its fake route {fake}")
+        print(f"fake route: {name} outputs {real} on the card and on fake tensors alike {tag}")
+    seconds = time.perf_counter() - t0
+    print(f"slice 17 (dry run) in {seconds:.1f} s {tag}")
+    return {"dryrun": rec, "seconds": seconds}
+
+
 def _fused_rung_launches(iterations):
     """recurrent_scan launches the fused_recurrent rung predicts: a warm and 3 timed calls."""
     from repro_torch.bench.throughput import _REPEATS
@@ -3702,6 +3791,9 @@ def main():
     trained.update(frontier["launches_training"])
     flash_worst.update(frontier["flash_worst"])
     xent_worst.update(frontier["xent_worst"])
+
+    # ---- slice 17: the multi-card LM path as a dry run, and the kernels' fake routes
+    dryrun_phase(tag, fops, xops, sops)
     print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s {tag}")
 
     main_row = next(r for r in rows if (r["B"], r["direction"]) == (64, "forward"))

@@ -10,11 +10,12 @@ Prints ``name,us_per_call,derived`` CSV rows, as the JAX package's
   value_decomposition  Fig 4 bottom — VDN vs MADQN (+QMIX) on smax-lite 3m
   architectures        Fig 6 — MAD4PG centralised vs decentralised; MPE
   distribution         Fig 6 bottom right — scaling with num_executors
+  roofline             §Roofline table from the dry-run JSON of the multi-card
+                       path (results/port/dryrun_baseline.json)
 
-The reference's ``roofline`` module reads the dry-run JSON of the
-multi-card path, which the port does not have yet, so it is not here.
 Every module runs on CUDA unless ``--device`` says otherwise; without a
-GPU and without ``--device`` the harness raises.
+GPU and without ``--device`` the harness raises.  ``roofline`` reads the
+dry run's estimates and runs on no device.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ MODULES = [
     "value_decomposition",
     "architectures",
     "distribution",
+    "roofline",
 ]
 
 

@@ -1,10 +1,10 @@
 """Kimi K2 — trillion-parameter MoE, 384 experts top-8 (paper-table config)
 [arXiv:2501.kimi2].
 
-The reference's config also sets ``sharding="fsdp_tp"``: its published
-width spreads over a mesh.  The port runs on one card and does not shard,
-so its `ModelConfig` has no such field; the published width runs there
-cut in depth (README, PERF.md §4).
+``sharding="fsdp_tp"``, as in the reference: its published width spreads
+over a mesh, whose fit `repro_torch.launch.dryrun` checks on 256 and 512
+H100s.  On one card the published width runs cut in depth (README,
+PERF.md §4); `sharding` is read only under a mesh.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     vocab=163840,
     num_experts=384,
     top_k=8,
+    sharding="fsdp_tp",
     source="arXiv:2501.kimi2",
 )
 

@@ -1,9 +1,9 @@
 """Llama-3.1-405B — GQA dense, 128k vocab [arXiv:2407.21783].
 
-The reference's config also sets ``sharding="fsdp_tp"``: its published
-width spreads over a mesh.  The port runs on one card and does not shard,
-so its `ModelConfig` has no such field; the published width runs there
-cut in depth (README, PERF.md §4).
+``sharding="fsdp_tp"``, as in the reference: its published width spreads
+over a mesh, whose fit `repro_torch.launch.dryrun` checks on 256 and 512
+H100s.  On one card the published width runs cut in depth (README,
+PERF.md §4); `sharding` is read only under a mesh.
 """
 from repro_torch.models.config import ModelConfig
 
@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     num_kv_heads=8,
     d_ff=53248,
     vocab=128256,
+    sharding="fsdp_tp",
     source="arXiv:2407.21783",
 )
 

@@ -2,9 +2,10 @@
 
 `KNOWN_ARCH_IDS` is the JAX registry's list; `ARCH_IDS` the archs whose
 configs the port carries: all ten, the same list.  llama3-405b and
-kimi-k2-1t-a32b carry no ``sharding`` field: the reference shards them
-over a mesh, and the port runs on one card, where their published widths
-run cut in depth.  An unknown arch raises `KeyError`.  What the port runs
+kimi-k2-1t-a32b carry ``sharding="fsdp_tp"`` as the reference's do: the
+dry run (`repro_torch.launch.dryrun`) shards them over a mesh; on one card
+their published widths run cut in depth.  An unknown arch raises
+`KeyError`.  What the port runs
 of each family is `models.model.PORTED`.
 """
 from __future__ import annotations

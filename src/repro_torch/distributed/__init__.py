@@ -5,8 +5,11 @@
   is bound to, and `run_world`, the spawned world the sharded runner
   (`repro_torch.core.system.train_distributed`) runs its ranks in;
 * `repro_torch.distributed.impala` — the IMPALA-style async
-  actor/learner runner (`make_async` / `train_async`).
-
-The reference's logical-axis rules (`repro.distributed.sharding`) are not
-ported.
+  actor/learner runner (`make_async` / `train_async`);
+* `repro_torch.distributed.sharding` — the reference's logical-axis rules
+  (`repro.distributed.sharding`) over a `DeviceMesh`: specs, DTensor
+  placements, `with_logical_constraint`, and the sharded calls the LM runs
+  on DTensors (`einsum`, the vocab-parallel lookups, `local_call`).  The
+  async runner's ``actors`` rule is in the table; the runner does not
+  shard its actors by it.
 """

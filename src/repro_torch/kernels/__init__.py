@@ -39,6 +39,19 @@ BUILD_EVENTS: collections.Counter = collections.Counter()
 _EVENTS_LOCK = threading.Lock()  # chip_smoke builds the sources from several threads
 
 
+def is_fake(t) -> bool:
+    """Whether ``t`` is a `FakeTensor`: shape, dtype and device with no data.
+
+    A kernel wrapper given fake inputs (a dry run traced under
+    `FakeTensorMode`) returns empty outputs of its kernel's shapes and
+    dtypes, and so allocates nothing else; real inputs never take that
+    route, whatever happens to a build or a launch.
+    """
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
 def _nvcc() -> str:
     """Path of the CUDA compiler: on ``PATH``, else under PyTorch's CUDA_HOME."""
     found = shutil.which("nvcc")

@@ -12,6 +12,12 @@ It is differentiable as the JAX op is (``ops.py:64-73``): the backward is
 the vjp of the plain version, recomputed from the saved q, k and v
 (`ref.attention_ref_vjp`, ``bwd_block`` query rows at a time).  There is
 no backward kernel.
+
+Fake inputs (`repro_torch.kernels.is_fake`) get an empty output of the
+kernel's shape and dtype and nothing else.  DTensor inputs run the op on
+each rank's shards (`_sharded`): batch and query heads may be sharded; a
+rank whose query heads share kv heads that are replicated takes only the
+kv heads its query heads read.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import functools
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, local_call, shard_index, sharded_dims
+from repro_torch.kernels import is_fake
 from repro_torch.kernels.flash_attention.ref import attention_ref, attention_ref_vjp
 from repro_torch.roofline.op_cost import custom_op
 
@@ -102,6 +110,8 @@ def _forward(q, k, v, causal, window):
     nbytes = e * (2 * B * Hq * S * hd + 2 * B * Hkv * S * hd)
     flops = 4 * hd * _live_pairs(S, causal, window) * B * Hq
     with custom_op("flash_attention", flops=flops, nbytes=nbytes):
+        if is_fake(q):
+            return torch.empty_like(q)
         if q.is_cuda:
             return _launch(q, k, v, causal, window)
         if q.device.type == "cpu":
@@ -131,8 +141,59 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, bwd_block:
     head h reads kv head ``h // (Hq // Hkv)``.  ``window`` > 0 keeps the
     keys within ``window`` positions of the query.
     """
+    if is_dtensor(q):  # each rank's call checks its shards
+        return _sharded(q, k, v, causal, window, bwd_block)
     _check(q, k, v, window)
     return _FlashAttention.apply(q, k, v, causal, window, bwd_block)
+
+
+def kv_heads_read(q_heads: int, kv_heads: int, shards: int, index: int) -> tuple[int, int]:
+    """The kv heads ``[lo, hi)`` that query-head shard ``index`` of ``shards`` reads.
+
+    Shard ``index`` holds query heads ``index * q_heads / shards`` onward,
+    and query head h reads kv head ``h // (q_heads / kv_heads)``.  The
+    local op maps its query heads onto the slice by the same rule only
+    when a shard's heads are whole groups or within one group.
+    """
+    local, n_rep = q_heads // shards, q_heads // kv_heads
+    if local % n_rep and n_rep % local:
+        raise ValueError(f"{shards} shards of {q_heads} query heads cut the groups of "
+                         f"{n_rep} that share a kv head")
+    lo = index * local // n_rep
+    return lo, max(lo + 1, (index + 1) * local // n_rep)
+
+
+def _sharded(q, k, v, causal, window, bwd_block):
+    """`flash_attention` on DTensors: the op on each rank's shards.
+
+    q's batch and head shards are kept (a sequence or head_dim shard is
+    gathered); k and v take q's batch shards, and its head shards where
+    their heads divide as q's, else stay replicated over those axes and
+    each rank slices the kv heads its query heads read (`kv_heads_read`):
+    handing the op every kv head would map local query head i to kv head
+    i, which is wrong and runs without an error.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    dims = sharded_dims(q)
+    head_axes = [a for a in names if dims.get(a) == 1]
+    index, shards = shard_index(mesh, head_axes)
+    Hq, Hkv = q.shape[1], k.shape[1]
+    split_kv = Hkv % shards == 0
+    q_place = tuple(Shard(dims[a]) if dims.get(a) in (0, 1) else Replicate() for a in names)
+    kv_place = tuple(Shard(0) if dims.get(a) == 0 else
+                     Shard(1) if a in head_axes and split_kv else Replicate() for a in names)
+    lo, hi = (0, Hkv) if split_kv else kv_heads_read(Hq, Hkv, shards, index)
+
+    def run(ql, kl, vl):
+        if (lo, hi) != (0, Hkv):
+            kl, vl = kl[:, lo:hi].contiguous(), vl[:, lo:hi].contiguous()
+        return flash_attention(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                               causal=causal, window=window, bwd_block=bwd_block)
+
+    return local_call(run, mesh, list(q_place), (q_place, kv_place, kv_place), q, k, v)
 
 
 # Launches of the CUDA kernel in this process; the plain CPU path does not count.

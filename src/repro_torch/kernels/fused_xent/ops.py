@@ -14,6 +14,11 @@ into `vocab_splits`; each launch of the op then runs two kernels, the
 product-and-fold over (split, token tile) blocks and a combine over the
 splits, counted in ``launches`` and ``combine_launches``.
 
+Fake inputs (`repro_torch.kernels.is_fake`) get an empty (T,) float32
+loss and nothing else.  DTensor inputs run the op on each rank's shards
+(`_sharded`): tokens sharded over some mesh axes, the vocab over others,
+each rank's partial logsumexp and label logit combined across the vocab's.
+
 Numerics follow the training loss: each logit is rounded to the operands'
 dtype before the float32 logsumexp (see `ref`).  The JAX op has no vjp;
 the loss that calls this one (`repro_torch.models.layers.
@@ -26,6 +31,13 @@ import functools
 
 import torch
 
+from repro_torch.distributed.sharding import (
+    is_dtensor,
+    local_call,
+    shard_index,
+    sharded_dims,
+)
+from repro_torch.kernels import is_fake
 from repro_torch.kernels.fused_xent.ref import softmax_xent_ref
 from repro_torch.roofline.op_cost import custom_op
 
@@ -141,16 +153,86 @@ def _check(x, w, labels):
 
 def fused_softmax_xent(x, w, labels):
     """x: (T, d); w: (d, V); labels: (T,) int -> (T,) float32 per-token loss."""
+    if is_dtensor(x) or is_dtensor(w):  # each rank's call checks its shards
+        return _sharded(x, w, labels)
     _check(x, w, labels)
     (T, d), V = x.shape, w.shape[1]
     # x, w and the labels read once, the loss written once; 2 T d V for the product
     nbytes = (T * d + d * V) * x.element_size() + T * labels.element_size() + T * 4
     with custom_op("fused_xent", flops=2 * T * d * V, nbytes=nbytes):
+        if is_fake(x):
+            return torch.empty(T, dtype=torch.float32, device=x.device)
         if x.is_cuda:
             return _launch(x, w, labels)
         if x.device.type == "cpu":
             return softmax_xent_ref(x, w, labels)
     raise NotImplementedError(f"fused_softmax_xent has no kernel for {x.device}")
+
+
+GOLD_ROWS = 1024  # tokens a step when `label_logits` gathers W's label columns
+
+
+def label_logits(x, w, labels):
+    """``(x @ w)[t, labels[t]]`` a token, rounded to x's dtype as the loss rounds it, as float32.
+
+    Gathers W's label columns `GOLD_ROWS` tokens at a time, so it never
+    holds more than (GOLD_ROWS, d) of them.
+    """
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    wt = w.t()
+    for t0 in range(0, x.shape[0], GOLD_ROWS):
+        xs, cols = x[t0:t0 + GOLD_ROWS], wt[labels[t0:t0 + GOLD_ROWS].long()]
+        out[t0:t0 + GOLD_ROWS] = torch.bmm(xs[:, None, :], cols[:, :, None])[:, 0, 0].float()
+    return out
+
+
+def _sharded(x, w, labels):
+    """`fused_softmax_xent` on DTensors: the op on each rank's shards.
+
+    The tokens keep x's shards (W's other shards, its FSDP ``embed``
+    shards, are gathered); W keeps its vocab shards over the axes the
+    tokens do not use.  Each rank runs the op on its vocab slice with each
+    label moved into the slice (a label outside it reads column 0), which
+    gives ``lse_r - logit_r``; adding back the logit it read
+    (`label_logits`) leaves its partial logsumexp ``lse_r``.  Across the
+    vocab's axes, two all-reduces combine them, as the kernel's own split
+    and combine do: the max of the ``lse_r``, then the sum of
+    ``exp(lse_r - max)`` beside the label's logit, which only the rank
+    holding the label contributes.
+    """
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    names = mesh.mesh_dim_names
+    xd = sharded_dims(x) if is_dtensor(x) else {}
+    wd = sharded_dims(w) if is_dtensor(w) else {}
+    token_axes = [a for a in names if xd.get(a) == 0]
+    vocab_axes = [a for a in names if wd.get(a) == 1 and a not in token_axes]
+    t_place = tuple(Shard(0) if a in token_axes else Replicate() for a in names)
+    w_place = tuple(Shard(1) if a in vocab_axes else Replicate() for a in names)
+    V = w.shape[1]
+    groups = [mesh.get_group(a) for a in vocab_axes]
+
+    def run(xl, wl, ll):
+        xl, wl, ll = xl.contiguous(), wl.contiguous(), ll.contiguous()
+        if not vocab_axes:
+            return fused_softmax_xent(xl, wl, ll)
+        index, shards = shard_index(mesh, vocab_axes)
+        lo = index * (V // shards)
+        inside = (ll >= lo) & (ll < lo + wl.shape[1])
+        local = torch.where(inside, ll - lo, torch.zeros_like(ll))
+        read = label_logits(xl, wl, local)
+        lse = fused_softmax_xent(xl, wl, local) + read
+        top = lse.clone()
+        for g in groups:
+            dist.all_reduce(top, op=dist.ReduceOp.MAX, group=g)
+        parts = torch.stack([torch.exp(lse - top), torch.where(inside, read, 0.0)])
+        for g in groups:
+            dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=g)
+        return top + torch.log(parts[0]) - parts[1]
+
+    return local_call(run, mesh, list(t_place), (t_place, w_place, t_place), x, w, labels)
 
 
 # Launches of the CUDA kernels in this process (the product-and-fold kernel,

@@ -14,6 +14,12 @@ cotangents of both outputs.  On a GPU that is a kernel of its own
 (``csrc/selective_scan_bwd.cu``); on the CPU it is autograd through
 `selective_scan_ref`, which is what the JAX op's backward computes.  Each
 gradient comes back in its input's dtype, as ``jax.vjp`` gives it.
+
+Fake inputs (`repro_torch.kernels.is_fake`) get empty outputs of the
+kernels' shapes and dtypes, forward and backward, and nothing else.
+DTensor inputs run the op on each rank's shards (`_sharded`): the batch
+and the channels (``dinner``) may be sharded; A, D, delta and x shard with
+the channels, B and C are shared by them.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import functools
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, local_call, sharded_dims
+from repro_torch.kernels import is_fake
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref, selective_scan_ref_vjp
 from repro_torch.roofline.op_cost import custom_op
 
@@ -150,6 +158,8 @@ def _forward(x, delta, A, B, C, D):
     # h fma, dx*B and the y fma
     nbytes = b * S * di * (2 * e + 4) + 2 * b * S * N * e + di * N * 4 + di * 4 + b * di * N * 4
     with custom_op("selective_scan", flops=b * S * di * (6 * N + 3), nbytes=nbytes):
+        if is_fake(x):
+            return torch.empty_like(x), x.new_empty(b, di, N, dtype=torch.float32)
         if x.is_cuda:
             return _launch(x, delta, A, B, C, D)
         if x.device.type == "cpu":
@@ -177,10 +187,38 @@ def selective_scan(x, delta, A, B, C, D):
     and C are float32 or bfloat16 (one dtype); delta, A and D float32.
     Differentiable in every input; see the module docstring.
     """
+    if is_dtensor(x):  # each rank's call checks its shards
+        return _sharded(x, delta, A, B, C, D)
     _check(x, delta, A, B, C, D)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, delta, A, B, C, D)):
         return _SelectiveScan.apply(x, delta, A, B, C, D)
     return _forward(x, delta, A, B, C, D)
+
+
+def _sharded(x, delta, A, B, C, D):
+    """`selective_scan` on DTensors: the op on each rank's shards.
+
+    x's batch and channel shards are kept (a sequence shard is gathered);
+    delta takes x's, A and D its channel shards, B and C its batch shards.
+    y comes back laid out as x, h_final (b, di, N) by batch and channels.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    dims = sharded_dims(x)
+    rows = [a for a in names if dims.get(a) == 0]
+    chans = [a for a in names if dims.get(a) == 2]
+
+    def place(row_dim=None, chan_dim=None):
+        return tuple(Shard(row_dim) if a in rows and row_dim is not None else
+                     Shard(chan_dim) if a in chans and chan_dim is not None else Replicate()
+                     for a in names)
+
+    xp, ap, bp = place(0, 2), place(chan_dim=0), place(row_dim=0)
+    return local_call(lambda *t: selective_scan(*(u.contiguous() for u in t)), mesh,
+                      (list(xp), list(place(0, 1))), (xp, xp, ap, bp, bp, ap),
+                      x, delta, A, B, C, D)
 
 
 def selective_scan_bwd(x, delta, A, B, C, D, dy, dh_final):
@@ -202,6 +240,8 @@ def selective_scan_bwd(x, delta, A, B, C, D, dy, dh_final):
     nbytes = (b * S * di * (3 * e + 8) + 4 * b * S * N * e + 2 * di * N * 4 + b * di * N * 4
               + 2 * di * 4)
     with custom_op("selective_scan_bwd", flops=b * S * di * (12 * N + 6), nbytes=nbytes):
+        if is_fake(x):
+            return tuple(torch.empty_like(t) for t in (x, delta, A, B, C, D))
         if x.is_cuda:
             return _launch_bwd(x, delta, A, B, C, D, dy, dh_final)
         if x.device.type == "cpu":

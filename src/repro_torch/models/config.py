@@ -4,11 +4,13 @@
 config's names and defaults; a field joins when code that reads it is
 ported.  ``use_pallas`` is not carried over: the port picks a kernel or its
 plain version by the device a tensor lies on.  The parameter counts follow
-the reference's formulas.
+the reference's formulas.  `InputShape` and `INPUT_SHAPES` are the dry
+run's four (arch, input shape) shapes (config.py:181-200).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -50,6 +52,9 @@ class ModelConfig:
 
     # --- attention variants ---
     attn_window: int = 0  # 0 = full causal; >0 = sliding window size
+    # window used when constructing the long_500k variant of an attention
+    # arch (dense/vlm/audio/hybrid); see launch.steps.shape_config
+    long_context_window: int = 8192
     rope_theta: float = 10000.0
     attn_chunk: int = 512  # query rows per block of the attention backward
 
@@ -57,8 +62,27 @@ class ModelConfig:
     num_codebooks: int = 0   # audio: EnCodec codebooks
     vision_tokens: int = 0   # vlm: number of patch-embedding tokens prepended
 
+    # --- distribution ---
+    sharding: str = "tp"  # "tp" | "fsdp_tp" | "fsdp_tp_sp" (distributed.sharding)
+    grad_accum: int = 1  # microbatches per train step (activation memory / k)
+    # save post-collective layer outputs under remat so backward does not
+    # re-run forward all-reduces (communication-avoiding remat policy): each
+    # layer's checkpoint keeps the outputs of the collectives it ran
+    save_layer_outputs: bool = False
+    # The reference's switch from the scanned full-row attention sweep to
+    # the causally-live key blocks (~2x attention FLOP reduction).  It
+    # changes nothing in the port: the flash kernel and its plain version
+    # already visit only the live (query, key) pairs (kernels/
+    # flash_attention/ops.py `_live_pairs`); kept so that hillclimb's
+    # overrides apply.
+    attn_causal_skip: bool = False
+    # flash-decoding-style KV cache sharding: shard the cache's sequence dim
+    # over the model axis (softmax combines via two small all-reduces) —
+    # the lever for GQA archs whose n_kv < model-axis size, where head
+    # sharding can't apply and replicated 32k caches blow past HBM
+    shard_kv_seq: bool = False
+
     # --- numerics / training ---
-    grad_accum: int = 1  # microbatches per train step
     dtype: str = "bfloat16"
     remat: bool = True
     xent_chunk: int = 512  # sequence chunk of the loss's backward
@@ -161,3 +185,29 @@ class ModelConfig:
         if self.arch_type == "hybrid" and self.shared_attn and self.attn_every:
             n += self._shared_block_params() * (self.num_attn_invocations - 1)
         return int(n)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One dry-run input shape: tokens a stream, streams, and the step it feeds."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Tuple[InputShape, ...] = (
+    InputShape("train_4k", 4_096, 256, "train"),
+    InputShape("prefill_32k", 32_768, 32, "prefill"),
+    InputShape("decode_32k", 32_768, 128, "decode"),
+    InputShape("long_500k", 524_288, 1, "decode"),
+)
+
+
+def get_input_shape(name: str) -> InputShape:
+    """The `INPUT_SHAPES` entry named ``name``."""
+    for s in INPUT_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

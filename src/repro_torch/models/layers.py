@@ -13,6 +13,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import (
+    einsum,
+    is_dtensor,
+    matmul,
+    sharded_embed,
+    sharded_take,
+    with_logical_constraint,
+)
 from repro_torch.kernels.fused_xent import fused_softmax_xent
 
 
@@ -57,6 +65,9 @@ def init_rmsnorm(d, device):
     return torch.ones(d, dtype=torch.float32, device=device)
 
 
+RMSNORM_AXES = {"scale": ("embed",)}  # `init_rmsnorm`'s logical axes (layers.py:26)
+
+
 def rmsnorm(scale, x, eps=1e-6):
     """RMS-normalise the last dim in float32, scale, then cast back."""
     x32 = x.float()
@@ -72,8 +83,14 @@ def init_embedding(generator, vocab, d, dtype):
     return _trunc_normal(generator, (vocab, d), 1.0, dtype)
 
 
+EMBED_AXES = {"embedding": ("vocab", "embed")}  # layers.py:38
+UNEMBED_AXES = {"w": ("embed", "vocab")}  # layers.py:48
+
+
 def embed(embedding, ids):
-    """Rows of ``embedding`` for integer ``ids``."""
+    """Rows of ``embedding`` for integer ``ids`` (`sharded_embed` for a DTensor table)."""
+    if is_dtensor(embedding):
+        return sharded_embed(embedding, ids)
     return F.embedding(ids, embedding)
 
 
@@ -119,10 +136,15 @@ def init_mlp(generator, d, d_ff, dtype):
     }
 
 
+MLP_AXES = {"w_gate": ("embed", "ffn"), "w_up": ("embed", "ffn"),
+            "w_down": ("ffn", "embed")}  # `init_mlp`'s logical axes (layers.py:90-94)
+
+
 def mlp(params, x):
     """``(silu(x W_gate) * (x W_up)) W_down`` in the weights' dtype."""
-    h = F.silu(x @ params.w_gate) * (x @ params.w_up)
-    return h @ params.w_down
+    h = F.silu(matmul(x, params.w_gate)) * matmul(x, params.w_up)
+    h = with_logical_constraint(h, ("batch", None, "ffn"))
+    return matmul(h, params.w_down)
 
 
 # ------------------------------------------------- softmax x-entropy
@@ -132,6 +154,8 @@ def softmax_xent_logits(logits, labels):
     """Per-token cross entropy from logits; float32 reductions."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
+    if is_dtensor(logits):
+        return lse - sharded_take(logits, labels)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - gold
 
@@ -153,18 +177,19 @@ class _ChunkedXent(torch.autograd.Function):
         x, w, labels, mask, cnt = ctx.saved_tensors
         S = x.shape[1]
         dlosses = g * mask / cnt  # (B, S) float32
-        dx = torch.empty_like(x)
-        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        # one chunk loop on and off a mesh: `matmul` is ``@`` off one, the
+        # sharded matmul on DTensors (`sharded_take` picks the labels' logits)
+        dxs, dw = [], None
         for s0 in range(0, S, ctx.chunk):
             s1 = min(s0 + ctx.chunk, S)
             with torch.enable_grad():
                 xc = x[:, s0:s1].detach().requires_grad_()
                 wc = w.detach().requires_grad_()
-                losses = softmax_xent_logits(xc @ wc, labels[:, s0:s1])
+                losses = softmax_xent_logits(matmul(xc, wc), labels[:, s0:s1])
                 dxc, dwc = torch.autograd.grad(losses, (xc, wc), dlosses[:, s0:s1])
-            dx[:, s0:s1] = dxc
-            dw += dwc
-        return dx, dw.to(w.dtype), None, None, None
+            dxs.append(dxc)
+            dw = dwc.float() if dw is None else dw + dwc.float()
+        return torch.cat(dxs, dim=1), dw.to(w.dtype), None, None, None
 
 
 def chunked_softmax_xent(x, w_unembed, labels, chunk, mask=None):
@@ -180,6 +205,9 @@ def chunked_softmax_xent(x, w_unembed, labels, chunk, mask=None):
     logit is rounded to ``x``'s dtype before the float32 softmax.
     """
     B, S, _ = x.shape
+    # the loss's tokens are the batch's rows: a sequence shard (fsdp_tp_sp) is gathered first
+    x = with_logical_constraint(x, ("batch", None, "embed"))
+    labels = with_logical_constraint(labels, ("batch", None))
     if mask is None:
         mask = torch.ones(B, S, dtype=torch.float32, device=x.device)
     return _ChunkedXent.apply(x, w_unembed.contiguous(), labels, mask.float(), min(chunk, S))
@@ -197,7 +225,7 @@ def causal_depthwise_conv1d(x, weight, state=None):
     K = weight.shape[-1]
     if state is not None:
         window = torch.cat([state, x], dim=1)  # (B,K,C)
-        y = torch.einsum("bkc,ck->bc", window, weight)[:, None]
+        y = einsum("bkc,ck->bc", window, weight)[:, None]
         return y, window[:, 1:]
     # Sum of K shifted copies, in the reference's order (layers.py:164-171)
     S = x.shape[1]

@@ -17,6 +17,11 @@ embeddings a position and has a head a codebook.
   prefill(model, tokens, max_len=None, *, vision_embeds=None)
                                               -> (last-position logits, cache)
   decode_step(model, cache, tokens)           -> (logits, cache)
+  model_axes(cfg), cache_axes(cfg)            -> logical axes of the parameters, the cache
+
+Under a mesh (`repro_torch.distributed.sharding.enter_mesh`) the same code
+runs on DTensors laid out by those axes; off a mesh every sharding call is
+a no-op (docs/PORT_DISTRIBUTED.md).
 
 Every parameter is trainable; `prefill` and `decode_step` run under
 `torch.no_grad`, so serving builds no autograd graph.
@@ -40,17 +45,31 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (
+    assign,
+    einsum,
+    layer_slice,
+    matmul,
+    sharded_zeros,
+    with_logical_constraint,
+)
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (
+    ATTENTION_AXES,
     attention_decode,
     attention_full,
     attention_prefill,
     init_attention,
     init_kv_cache,
+    kv_cache_axes,
     place_kv_in_cache,
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    EMBED_AXES,
+    MLP_AXES,
+    RMSNORM_AXES,
+    UNEMBED_AXES,
     Params,
     _detach,
     chunked_softmax_xent,
@@ -62,7 +81,14 @@ from repro_torch.models.layers import (
     mlp,
     rmsnorm,
 )
-from repro_torch.models.ssm import Mamba1, Mamba2, init_mamba1, init_mamba2
+from repro_torch.models.ssm import (
+    MAMBA1_AXES,
+    MAMBA2_AXES,
+    Mamba1,
+    Mamba2,
+    init_mamba1,
+    init_mamba2,
+)
 
 # family -> what the port runs of it
 PORTED = {fam: ("training", "serving")
@@ -199,6 +225,32 @@ def init_model(generator, cfg: ModelConfig) -> LM:
     return LM(tree, cfg)
 
 
+def _block_axes(cfg: ModelConfig, kind: str):
+    if kind in ("dense", "moe"):
+        ffn = {"mlp": MLP_AXES} if kind == "dense" else {"moe": moe_lib.MOE_AXES}
+        return {"norm1": RMSNORM_AXES, "attn": ATTENTION_AXES, "norm2": RMSNORM_AXES, **ffn}
+    return {"norm": RMSNORM_AXES, "mamba": MAMBA1_AXES if kind == "mamba1" else MAMBA2_AXES}
+
+
+def model_axes(cfg: ModelConfig):
+    """Logical axes of `init_model`'s parameters, keyed as `LM.tree` (model.py:117).
+
+    Leaf for leaf the reference's axes once ``layers`` is unstacked: each
+    layer's tuples lack the stacked layer dim's leading None.
+    """
+    block = _block_axes(cfg, core_kind(cfg))
+    out = {"layers": [block] * cfg.num_layers}
+    if cfg.num_codebooks:
+        out["embed"] = {"embedding": ("codebooks", "vocab", "embed")}
+        out["unembed"] = {"w": ("codebooks", "embed", "vocab")}
+    else:
+        out["embed"], out["unembed"] = EMBED_AXES, UNEMBED_AXES
+    out["final_norm"] = RMSNORM_AXES
+    if cfg.arch_type == "hybrid" and cfg.shared_attn:
+        out["shared_attn"] = _block_axes(cfg, "dense")
+    return out
+
+
 def _embed_tokens(model: LM, tokens, vision_embeds=None):
     """tokens: (B,S) int (audio: (B,S,K)) -> (B,S,d) in the model dtype.
 
@@ -224,8 +276,8 @@ def _logits(model: LM, h):
     """The final norm and the unembedding: (B,S,V), or (B,S,K,V) with K codebooks."""
     h = rmsnorm(model.final_norm.scale, h)
     if model.cfg.num_codebooks:
-        return torch.einsum("bsd,kdv->bskv", h, model.unembed.w)
-    return h @ model.unembed.w
+        return einsum("bsd,kdv->bskv", h, model.unembed.w)
+    return matmul(h, model.unembed.w)
 
 
 # ---------------------------------------------------------------- training
@@ -258,6 +310,30 @@ def _mamba_layer(layer: Block, h, positions, cfg: ModelConfig, shared):
     return h
 
 
+def _collective_ops():
+    ops = torch.ops._c10d_functional
+    return {ops.all_reduce.default, ops.all_gather_into_tensor.default,
+            ops.reduce_scatter_tensor.default, ops.all_to_all_single.default,
+            ops.wait_tensor.default}
+
+
+def _keep_collectives():
+    """The checkpoint contexts of ``cfg.save_layer_outputs``: a layer's backward
+    keeps what its forward's collectives returned, so it re-runs no all-reduce or
+    all-gather (the reference saves the post-collective sublayer outputs,
+    model.py:235-253).  Off a mesh a layer runs no collective, and this is
+    plain remat."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    keep = _collective_ops()
+
+    def policy(ctx, op, *args, **kwargs):
+        del ctx, args, kwargs
+        return CheckpointPolicy.MUST_SAVE if op in keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
+
+
 def _run_layers_train(model: LM, h):
     """All layers over the whole sequence (model.py:259-322): (h, (aux, z)).
 
@@ -267,7 +343,9 @@ def _run_layers_train(model: LM, h):
     so their gradients sum over the invocations.  With ``cfg.remat`` each
     layer, with the shared block it runs, is one `torch.utils.checkpoint`
     (the reference's `jax.checkpoint` of the scan body): only its input is
-    kept, and the backward runs its forward again.
+    kept, and the backward runs its forward again; with
+    ``cfg.save_layer_outputs`` it also keeps the outputs of the layer's
+    collectives (`_keep_collectives`).
     """
     cfg = model.cfg
     positions = torch.arange(h.shape[1], device=h.device)
@@ -275,6 +353,8 @@ def _run_layers_train(model: LM, h):
     aux = z = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def run(fn, *args):
+        if cfg.remat and cfg.save_layer_outputs:
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=_keep_collectives)
         if cfg.remat:
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
@@ -290,6 +370,7 @@ def _run_layers_train(model: LM, h):
                            and (idx + 1) % cfg.attn_every == 0)
             h = run(_mamba_layer, layer, h, positions, cfg,
                     model.shared_attn if runs_shared else None)
+        h = with_logical_constraint(h, ("batch", "seq", "embed"))
     L = len(model.layers)
     return h, (aux / L, z / L)
 
@@ -309,6 +390,7 @@ def forward_train(model: LM, batch):
     _require_ported(cfg, "training")
     vision = batch["vision_embeds"] if cfg.arch_type == "vlm" else None
     h = _embed_tokens(model, batch["tokens"], vision)
+    h = with_logical_constraint(h, ("batch", "seq", "embed"))
     h, (aux, z) = _run_layers_train(model, h)
     h = rmsnorm(model.final_norm.scale, h)
     w, labels = model.unembed.w, batch["labels"]
@@ -344,7 +426,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     one slot per shared-block invocation (model.py:387-405).
     """
     _require_ported(cfg, "serving")
-    cache = {"pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+    axes = cache_axes(cfg)
+    cache = {"pos": sharded_zeros((batch,), axes["pos"], dtype=torch.int32, device=device)}
     kind = core_kind(cfg)
     if kind in ("dense", "moe"):
         cache["kv"] = init_kv_cache(cfg, batch, max_len, device)
@@ -352,15 +435,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     L, K, di, n = cfg.num_layers, cfg.ssm_conv, cfg.d_inner, cfg.ssm_state
     f32 = dict(dtype=torch.float32, device=device)
     if kind == "mamba1":
-        cache["conv"] = torch.zeros(L, batch, K - 1, di, **f32)
-        cache["ssm"] = torch.zeros(L, batch, di, n, **f32)
+        cache["conv"] = sharded_zeros((L, batch, K - 1, di), axes["conv"], **f32)
+        cache["ssm"] = sharded_zeros((L, batch, di, n), axes["ssm"], **f32)
         return cache
-    cache["conv"] = torch.zeros(L, batch, K - 1, di + 2 * n, **f32)
-    cache["ssm"] = torch.zeros(L, batch, cfg.ssm_heads, n, cfg.ssm_head_dim, **f32)
+    cache["conv"] = sharded_zeros((L, batch, K - 1, di + 2 * n), axes["conv"], **f32)
+    cache["ssm"] = sharded_zeros((L, batch, cfg.ssm_heads, n, cfg.ssm_head_dim), axes["ssm"],
+                                 **f32)
     if _shared_invocations(cfg):
         cache["kv"] = init_kv_cache(cfg, batch, max_len, device,
                                     n_layers=cfg.num_attn_invocations)
     return cache
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of `init_cache`'s leaves (model.py:409)."""
+    kind = core_kind(cfg)
+    axes = {"pos": ("batch",)}
+    if kind in ("dense", "moe"):
+        axes["kv"] = kv_cache_axes(cfg)
+    elif kind == "mamba1":
+        axes["conv"] = (None, "batch", None, "dinner")
+        axes["ssm"] = (None, "batch", "dinner", None)
+    else:
+        axes["conv"] = (None, "batch", None, "dinner")
+        axes["ssm"] = (None, "batch", None, None, None)
+        if _shared_invocations(cfg):
+            axes["kv"] = kv_cache_axes(cfg)
+    return axes
 
 
 def _shared_invocations(cfg: ModelConfig) -> int:
@@ -397,8 +498,8 @@ def _attention_prefill(block: Block, h, positions, kv, slot, cfg: ModelConfig):
     y, k, v = attention_prefill(block.attn, rmsnorm(block.norm1.scale, h), positions, cfg)
     h = h + y
     C = kv["k"].shape[2]
-    kv["k"][slot] = place_kv_in_cache(k, C)
-    kv["v"][slot] = place_kv_in_cache(v, C)
+    assign(layer_slice(kv["k"], slot), place_kv_in_cache(k, C))
+    assign(layer_slice(kv["v"], slot), place_kv_in_cache(v, C))
     return h + _ffn(block, h, cfg)
 
 
@@ -408,7 +509,8 @@ def _attention_decode(block: Block, h, kv, slot, pos, cfg: ModelConfig):
     Its new K/V are written into cache slot ``slot`` in place.
     """
     y, _ = attention_decode(block.attn, rmsnorm(block.norm1.scale, h),
-                            {"k": kv["k"][slot], "v": kv["v"][slot]}, pos, cfg)
+                            {"k": layer_slice(kv["k"], slot), "v": layer_slice(kv["v"], slot)},
+                            pos, cfg)
     h = h + y
     return h + _ffn(block, h, cfg)
 
@@ -431,7 +533,8 @@ def prefill(model: LM, tokens, max_len=None, *, vision_embeds=None):
     if (vision_embeds is not None) != (cfg.arch_type == "vlm"):
         raise ValueError(f"{cfg.name}: vision_embeds (B, V, d) go with a vlm prompt, and "
                          f"only with one")
-    h = _embed_tokens(model, tokens, vision_embeds)
+    h = with_logical_constraint(_embed_tokens(model, tokens, vision_embeds),
+                                ("batch", None, "embed"))
     B, S = h.shape[:2]
     cache = init_cache(cfg, B, max_len or S, h.device)
     positions = torch.arange(S, device=h.device)
@@ -467,7 +570,7 @@ def decode_step(model: LM, cache, tokens):
     """
     cfg = model.cfg
     _require_ported(cfg, "serving")
-    h = _embed_tokens(model, tokens)
+    h = with_logical_constraint(_embed_tokens(model, tokens), ("batch", None, "embed"))
     pos = cache["pos"]
     new_cache = dict(cache)
     if core_kind(cfg) in ("dense", "moe"):
@@ -477,7 +580,8 @@ def decode_step(model: LM, cache, tokens):
         convs, ssms = [], []
         for i, layer in enumerate(model.layers):
             y, (conv_s, ssm_s) = layer.mamba.decode(
-                rmsnorm(layer.norm.scale, h), cache["conv"][i], cache["ssm"][i]
+                rmsnorm(layer.norm.scale, h), layer_slice(cache["conv"], i),
+                layer_slice(cache["ssm"], i)
             )
             h = h + y
             convs.append(conv_s)

@@ -29,6 +29,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import (
+    einsum,
+    is_dtensor,
+    local_call,
+    matmul,
+    sharded_dims,
+    with_logical_constraint,
+)
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models.layers import Params, _trunc_normal, causal_depthwise_conv1d
 
@@ -64,6 +72,20 @@ def init_mamba1(generator, cfg):
         "D": torch.ones(di, dtype=torch.float32, device=dev),
         "out_proj": _trunc_normal(generator, (di, d), 1.0 / math.sqrt(di), dtype),
     }
+
+
+# `init_mamba1`'s logical axes (ssm.py:60-70)
+MAMBA1_AXES = {
+    "in_proj": ("embed", "dinner"),
+    "conv_w": ("dinner", None),
+    "conv_b": ("dinner",),
+    "x_proj": ("dinner", None),
+    "dt_proj_w": (None, "dinner"),
+    "dt_proj_b": ("dinner",),
+    "A_log": ("dinner", "state"),
+    "D": ("dinner",),
+    "out_proj": ("dinner", "embed"),
+}
 
 
 def _softplus(x):
@@ -145,8 +167,9 @@ def mamba1_forward(m, x, cfg):
     decode cache after prefill.
     """
     S = x.shape[1]
-    xz = x @ m.in_proj  # (B,S,2di)
+    xz = matmul(x, m.in_proj)  # (B,S,2di)
     xs, z = xz.chunk(2, dim=-1)
+    xs = with_logical_constraint(xs, ("batch", None, "dinner"))
 
     # Prefill convolves in the model dtype, with the conv weights cast down,
     # then adds the float32 bias; the state it keeps is the *pre-conv* xs
@@ -155,20 +178,21 @@ def mamba1_forward(m, x, cfg):
     new_conv_state = xs[:, S - (cfg.ssm_conv - 1):].float()
     xs = F.silu(conv_out).to(x.dtype)
 
-    proj = xs @ m.x_proj  # (B,S,r+2n)
+    proj = matmul(xs, m.x_proj)  # (B,S,r+2n)
     dt_r, Bm, Cm = _split_proj(proj, cfg)
     # delta is float32; B and C stay in the model dtype until the scan casts them
-    delta = _softplus(dt_r.float() @ m.dt_proj_w + m.dt_proj_b)
+    delta = _softplus(matmul(dt_r.float(), m.dt_proj_w) + m.dt_proj_b)
     A = -torch.exp(m.A_log)
     y, h_final = selective_scan(xs, delta, A, Bm.contiguous(), Cm.contiguous(), m.D)
     y = y * F.silu(z)  # the output gate runs in the model dtype (ssm.py:162)
-    return y @ m.out_proj, (new_conv_state, h_final)
+    return with_logical_constraint(matmul(y, m.out_proj), ("batch", None, "embed")), (
+        new_conv_state, h_final)
 
 
 def mamba1_decode(m, x, conv_state, ssm_state, cfg):
     """Single-token decode. x: (B,1,d); conv_state: (B,K-1,di) float32;
     ssm_state: (B,di,N) float32. Returns (y, (conv_state, ssm_state))."""
-    xz = x @ m.in_proj
+    xz = matmul(x, m.in_proj)
     xs, z = xz.chunk(2, dim=-1)  # (B,1,di)
     # float32 conv with the float32 weights, unlike prefill (ssm.py:178-181)
     conv_out, new_conv_state = causal_depthwise_conv1d(
@@ -176,9 +200,9 @@ def mamba1_decode(m, x, conv_state, ssm_state, cfg):
     )
     xs = F.silu(conv_out + m.conv_b).to(x.dtype)  # (B,1,di)
 
-    proj = xs @ m.x_proj
+    proj = matmul(xs, m.x_proj)
     dt_r, Bm, Cm = _split_proj(proj, cfg)
-    delta = _softplus(dt_r.float() @ m.dt_proj_w + m.dt_proj_b)  # (B,1,di)
+    delta = _softplus(matmul(dt_r.float(), m.dt_proj_w) + m.dt_proj_b)  # (B,1,di)
     A = -torch.exp(m.A_log)
 
     x_t = xs[:, 0].float()
@@ -187,10 +211,10 @@ def mamba1_decode(m, x, conv_state, ssm_state, cfg):
     C_t = Cm[:, 0].float()
     dA = torch.exp(d_t[..., None] * A)
     h = dA * ssm_state + (d_t * x_t)[..., None] * B_t[:, None, :]
-    y = torch.einsum("bdn,bn->bd", h, C_t) + m.D * x_t
+    y = einsum("bdn,bn->bd", h, C_t) + m.D * x_t
     # y is cast to x's dtype before the gate (ssm.py:197)
     y = y[:, None].to(x.dtype) * F.silu(z)
-    return y @ m.out_proj, (new_conv_state, h)
+    return matmul(y, m.out_proj), (new_conv_state, h)
 
 
 # ================================================================= Mamba 2
@@ -222,6 +246,19 @@ def init_mamba2(generator, cfg):
         "norm_scale": torch.ones(di, dtype=torch.float32, device=dev),
         "out_proj": _trunc_normal(generator, (di, d), 1.0 / math.sqrt(di), dtype),
     }
+
+
+# `init_mamba2`'s logical axes (ssm.py:235-244)
+MAMBA2_AXES = {
+    "in_proj": ("embed", "dinner"),
+    "conv_w": ("dinner", None),
+    "conv_b": ("dinner",),
+    "dt_bias": (None,),
+    "A_log": (None,),
+    "D": (None,),
+    "norm_scale": ("dinner",),
+    "out_proj": ("dinner", "embed"),
+}
 
 
 class Mamba2(Params):
@@ -295,6 +332,22 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     return y.reshape(b, nc * chunk, h, p)[:, :S].to(x.dtype), state
 
 
+def _ssd(x, dt, A, B, C, D, chunk: int):
+    """`ssd_chunked`; on DTensors each rank runs it on its streams (batch
+    shards kept, everything else gathered), as a stream's chunks never mix
+    with another's."""
+    if not is_dtensor(x):
+        return ssd_chunked(x, dt, A, B, C, D, chunk)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = {a for a, d in sharded_dims(x).items() if d == 0}
+    batch = tuple(Shard(0) if a in rows else Replicate() for a in mesh.mesh_dim_names)
+    whole = tuple(Replicate() for _ in mesh.mesh_dim_names)
+    return local_call(lambda *t: ssd_chunked(*t, chunk), mesh, (list(batch), list(batch)),
+                      (batch, batch, whole, batch, batch, whole), x, dt, A, B, C, D)
+
+
 def _rmsnorm_gated(x, z, scale, eps=1e-6):
     """RMSNorm of ``x * silu(z)``: the gate in float32 cast to x's dtype first."""
     x = x * F.silu(z.float()).to(x.dtype)
@@ -316,7 +369,8 @@ def mamba2_forward(m, x, cfg):
     """
     B_, S, _ = x.shape
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xBC, dt = _split_mamba2_proj(x @ m.in_proj, cfg)
+    z, xBC, dt = _split_mamba2_proj(matmul(x, m.in_proj), cfg)
+    xBC = with_logical_constraint(xBC, ("batch", None, "dinner"))
     # the model-dtype conv plus the float32 bias, as mamba1's prefill; the
     # state kept is the pre-conv xBC of the last K-1 positions (ssm.py:329-333)
     conv_out = causal_depthwise_conv1d(xBC, m.conv_w.to(xBC.dtype)).float() + m.conv_b
@@ -327,9 +381,10 @@ def mamba2_forward(m, x, cfg):
     Bm, Cm = xBC[..., di:di + n], xBC[..., di + n:]
     delta = _softplus(dt.float() + m.dt_bias)
     A = -torch.exp(m.A_log)
-    y, state = ssd_chunked(xs, delta, A, Bm, Cm, m.D, cfg.ssm_chunk)
+    y, state = _ssd(xs, delta, A, Bm, Cm, m.D, cfg.ssm_chunk)
     y = _rmsnorm_gated(y.reshape(B_, S, di), z, m.norm_scale)
-    return y @ m.out_proj, (new_conv_state, state)
+    return with_logical_constraint(matmul(y, m.out_proj), ("batch", None, "embed")), (
+        new_conv_state, state)
 
 
 def mamba2_decode(m, x, conv_state, ssm_state, cfg):
@@ -337,7 +392,7 @@ def mamba2_decode(m, x, conv_state, ssm_state, cfg):
     ssm_state: (B,h,n,p) float32. Returns (y, (conv_state, ssm_state))."""
     B_ = x.shape[0]
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xBC, dt = _split_mamba2_proj(x @ m.in_proj, cfg)
+    z, xBC, dt = _split_mamba2_proj(matmul(x, m.in_proj), cfg)
     # float32 conv with the float32 weights, unlike prefill (ssm.py:359-362)
     conv_out, new_conv_state = causal_depthwise_conv1d(xBC.float(), m.conv_w, state=conv_state)
     xBC = F.silu(conv_out + m.conv_b).to(x.dtype)  # (B,1,di+2n)
@@ -350,7 +405,7 @@ def mamba2_decode(m, x, conv_state, ssm_state, cfg):
 
     dA = torch.exp(delta * A)
     xdt = xs * delta[..., None]  # (B,h,p)
-    new_ssm = dA[..., None, None] * ssm_state + torch.einsum("bn,bhp->bhnp", Bm, xdt)
-    y = torch.einsum("bn,bhnp->bhp", Cm, new_ssm) + m.D[:, None] * xs
+    new_ssm = dA[..., None, None] * ssm_state + einsum("bn,bhp->bhnp", Bm, xdt)
+    y = einsum("bn,bhnp->bhp", Cm, new_ssm) + m.D[:, None] * xs
     y = _rmsnorm_gated(y.reshape(B_, 1, di).to(x.dtype), z, m.norm_scale)
-    return y @ m.out_proj, (new_conv_state, new_ssm)
+    return matmul(y, m.out_proj), (new_conv_state, new_ssm)

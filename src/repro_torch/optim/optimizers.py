@@ -143,9 +143,16 @@ def clip_adamw_in_place(params, grads, state, max_norm: float, learning_rate: fl
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(adam.mu),
                           tree_leaves(adam.nu)):
         g = _clip(g, factor)
-        m.copy_(_first_moment(m, g, b1))
-        v.copy_(_second_moment(v, g, b2))
-        p.add_(_adam_update(m, v, p, bc, learning_rate, eps, weight_decay))
+        # `_first_moment`, `_second_moment` and `_adam_update` op for op, each
+        # product and sum written into a tensor already there where it can be
+        # (the same roundings in the same order, so the same bits)
+        m.mul_(b1).add_((1 - b1) * g.to(m.dtype))
+        v.mul_(b2).add_(torch.square(g.float()).mul_(1 - b2))
+        step = m.float() / bc[0]
+        step.div_(torch.sqrt(v / bc[1]).add_(eps))
+        if weight_decay:
+            step.add_(weight_decay * p.float())
+        p.add_(step.mul_(-learning_rate).to(p.dtype))
     return clip_state, AdamState(count, adam.mu, adam.nu)
 
 

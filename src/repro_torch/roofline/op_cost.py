@@ -17,7 +17,15 @@ for every aten op run inside it:
                 skipped, as the reference skips bitcasts and tuples;
   collectives — result bytes per kind of the ``torch.distributed`` calls
                 (c10d ops: all-reduce, all-gather, reduce-scatter,
-                all-to-all, broadcast).
+                all-to-all, broadcast; and the functional collectives
+                DTensor issues, ``_c10d_functional``).
+
+On DTensors a counter sees each op twice: first at the DTensor level, at
+global shapes, then as the local op a rank runs on its shards, followed
+by the local collectives of any redistribution.  Only the local ops and
+collectives are counted (an op with a DTensor operand is skipped), so a
+count is one device's work: a matmul whose weight is sharded four ways
+costs a quarter, a replicated one its whole.
 
 The hand-written kernels are called through ctypes, not the dispatcher,
 so a counter would see nothing of them (and on the CPU it would see their
@@ -51,6 +59,20 @@ _C10D_KINDS = {
     "broadcast_": "broadcast",
 }
 
+# DTensor's local collectives (`torch.distributed._functional_collectives`)
+_FUNCTIONAL_KINDS = {
+    "all_reduce": "all-reduce",
+    "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "broadcast",
+    "broadcast_": "broadcast",
+}
+
 _ACTIVE: list = []  # the counters inside whose ``with`` the program runs
 _PAUSED = [0]  # > 0 while a custom op's plain ops run
 
@@ -69,6 +91,14 @@ class Cost:
     def collective_bytes(self) -> float:
         """The collective bytes of every kind together."""
         return sum(self.collectives.values())
+
+
+def _any_dtensor(values) -> bool:
+    if not any(type(x).__name__ == "DTensor" for x in values):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(x, DTensor) for x in values)
 
 
 def _nbytes(x) -> int:
@@ -125,6 +155,16 @@ class OpCost(TorchDispatchMode):
     def _count(self, func, args, kwargs, out) -> None:
         ns = func.namespace
         name = func._schema.name.split("::")[-1]
+        operands = tree_flatten((args, kwargs))[0]
+        if _any_dtensor(operands):
+            return  # the DTensor-level call; its local ops follow
+        if ns == "_c10d_functional":
+            kind = _FUNCTIONAL_KINDS.get(name)
+            if kind is not None:
+                moved = sum(_nbytes(x) for x in tree_flatten(out)[0])
+                self.cost.collectives[kind] += moved
+                self.cost.bytes += 2 * moved
+            return
         if ns == "c10d":
             kind = _C10D_KINDS.get(name)
             if kind is not None:
@@ -135,7 +175,7 @@ class OpCost(TorchDispatchMode):
         if ns != "aten" or name in _METADATA_OPS or _is_view(func):
             return
         self.cost.flops += _matmul_flops(name, args, out)
-        self.cost.bytes += sum(_nbytes(x) for x in tree_flatten((args, kwargs))[0])
+        self.cost.bytes += sum(_nbytes(x) for x in operands)
         self.cost.bytes += sum(_nbytes(x) for x in tree_flatten(out)[0])
 
 

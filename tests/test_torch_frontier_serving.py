@@ -1,8 +1,8 @@
 """Llama-3.1-405B and Kimi-K2 serving on the port: their smoke configs against JAX.
 
 The two archs whose published configs the reference shards over a mesh.
-The port runs them on one card without sharding, so its configs carry
-every field but ``sharding``.  On each smoke config in float32, with the
+The port's configs carry every field, ``sharding="fsdp_tp"`` too, which
+only its dry run over a mesh reads; on one card they run unsharded.  On each smoke config in float32, with the
 weights of ``repro.models.model.init_model(jax.random.key(0), cfg)``
 converted across:
 
@@ -44,11 +44,13 @@ ARCHS = (LLAMA, KIMI)
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_the_reference_but_sharding(arch):
+    """Every field of the published and smoke configs equals the reference's,
+    ``sharding`` included (the name is kept from when the port dropped it)."""
     assert set(ARCH_IDS) == set(KNOWN_ARCH_IDS)
     for port, ref in ((get_config(arch), jax_get_config(arch)),
                       (get_smoke_config(arch), jax_get_smoke_config(arch))):
         names = {f.name for f in dataclasses.fields(port)}
-        assert "sharding" not in names
+        assert "sharding" in names
         for name in names:
             assert getattr(port, name) == getattr(ref, name), name
         assert port.param_count() == ref.param_count()
