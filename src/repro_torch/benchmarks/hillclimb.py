@@ -12,6 +12,11 @@ chosen from its own 40-pair baseline):
 Each experiment is `repro_torch.launch.dryrun.dryrun_pair` with the
 overrides; the log goes to ``results/port/hillclimb.json``.  The figures
 are dry-run estimates for H100s, not measurements.
+
+A4, B3, C2 and C3 set ``attn_causal_skip``, which the port reads nowhere
+(its flash op already runs only the causally live blocks): their records
+name it under ``noop_overrides``, their lines say so, and each traces the
+step its other overrides alone give.
 """
 import argparse
 import json
@@ -114,6 +119,8 @@ def main():
                 f"compute={r['compute_s']*1e3:9.2f}ms memory={r['memory_s']*1e3:10.2f}ms "
                 f"coll={r['collective_s']*1e3:8.2f}ms useful={r['useful_ratio']:.3f} "
                 f"(compile {rec['compile_s']}s)"
+                + (f" no-ops in the port: {', '.join(rec['noop_overrides'])}"
+                   if rec.get("noop_overrides") else "")
             )
             sys.stdout.flush()
     os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -61,15 +61,15 @@ from repro_torch.envs.spread import SpreadState
 from repro_torch.envs.switch_game import SwitchState
 from repro_torch.envs.wrappers import EpisodeStatsState
 from repro_torch.models.model import LM
-from repro_torch.optim.optimizers import AdamState
+from repro_torch.optim.optimizers import AdamState, RmspropState, SgdState
 from repro_torch.tree import tree_leaves, tree_map
 
 NAMEDTUPLES = {
     cls.__name__: cls
     for cls in (
         AdamState, Carry, EpisodeStatsState, EvalMetrics, LbfState, MatrixGameState,
-        RwareState, SLState, SmaxState, SpreadState, SwitchState, SystemState, TimeStep,
-        TrainState, Transition,
+        RmspropState, RwareState, SgdState, SLState, SmaxState, SpreadState, SwitchState,
+        SystemState, TimeStep, TrainState, Transition,
     )
 }
 

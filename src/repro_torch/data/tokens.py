@@ -5,9 +5,9 @@ plus a learnable bigram structure (token t+1 follows token t through a
 fixed permutation, with noise), so a model trained on it shows a falling
 loss.  A copy of the reference's numpy code: the same seed and the same
 numpy generator give the same batches as `repro.data.tokens.
-SyntheticTokenDataset`.  The reference's `make_lm_batch` (placement on a
-JAX mesh) has no counterpart; callers move the numpy arrays to their
-device.
+SyntheticTokenDataset`.  `make_lm_batch` puts a host batch on a device,
+or lays it out on a `DeviceMesh` by a batch sharding, as the reference
+places it on its mesh.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -55,3 +56,26 @@ class SyntheticTokenDataset:
             "tokens": toks[:, :-1],
             "labels": toks[:, 1:],
         }
+
+
+def make_lm_batch(host_batch: dict, sharding=None, device=None):
+    """Put a host-side numpy batch on the device, each array a tensor of its dtype.
+
+    Without ``sharding`` each array goes to ``device`` (CUDA by default,
+    raising without one; `repro_torch.resolve_device`).  With a
+    `repro_torch.distributed.sharding.NamedSharding` each becomes a DTensor
+    on the sharding's mesh laid out by its spec (``distribute_tensor``:
+    rank 0's copy of the host batch is scattered, each rank keeping its
+    shard), as the reference places the batch on its mesh.
+    """
+    if sharding is None:
+        from repro_torch import resolve_device
+
+        device = resolve_device(device)
+        return {k: torch.as_tensor(v, device=device) for k, v in host_batch.items()}
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = sharding.mesh
+    return {k: distribute_tensor(torch.as_tensor(v, device=mesh.device_type), mesh,
+                                 sharding.placements)
+            for k, v in host_batch.items()}

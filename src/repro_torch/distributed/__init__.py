@@ -9,7 +9,7 @@
 * `repro_torch.distributed.sharding` — the reference's logical-axis rules
   (`repro.distributed.sharding`) over a `DeviceMesh`: specs, DTensor
   placements, `with_logical_constraint`, and the sharded calls the LM runs
-  on DTensors (`einsum`, the vocab-parallel lookups, `local_call`).  The
-  async runner's ``actors`` rule is in the table; the runner does not
-  shard its actors by it.
+  on DTensors (`einsum`, the vocab-parallel lookups, `local_call`); the
+  async runner constrains its actor state to the table's ``actors`` rule
+  (`impala._shard_actors`).
 """

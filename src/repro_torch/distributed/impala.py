@@ -22,9 +22,13 @@ snapshot's params are expanded to an ``(A, ...)`` view (no copy) and
 every actor steps its own ``num_envs`` envs from its own generator.  The
 snapshot is the learner's train state object itself: every update builds
 new tensors and writes none in place, so a later update cannot reach the
-params the actors act with.  The reference's `_shard_actors` (a logical
-``"actors"`` axis, a no-op outside a device mesh) has no counterpart in
-one process and is not ported.
+params the actors act with.  After the unrolls `_shard_actors` lays the
+actor state out by the logical ``"actors"`` axis, as the reference does:
+under `repro_torch.distributed.sharding.enter_mesh` every actor-state
+tensor becomes a DTensor whose actor (lane) dim is sharded over the
+mesh's data axes, and later unrolls run on those shards; outside a mesh
+the state is returned as it is.  The queue and the learner are not
+sharded: `push` gathers a DTensor chunk whole on every rank.
 
 Random streams (`_actor_keys`): one actor acts on the run's generator
 itself, ``N`` actors on `seed_generators(seed, N)` (the lanes of a
@@ -64,6 +68,7 @@ from repro_torch.core.system import (
     seed_generators,
 )
 from repro_torch.core.types import TrainState
+from repro_torch.distributed.sharding import ambient_mesh, is_dtensor, with_logical_constraint
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -129,6 +134,37 @@ def _actor_keys(seed: int, num_actors: int, device):
     if num_actors == 1:
         return torch.Generator(device).manual_seed(seed)
     return seed_generators(seed, num_actors, device)
+
+
+def _shard_actors(actors: ActorState) -> ActorState:
+    """Constrain every actor-state tensor's leading dim to the ``"actors"`` logical axis.
+
+    Under `enter_mesh` a plain leaf (every rank computed the same values,
+    from the same seed) is taken as a replicated DTensor, and
+    `with_logical_constraint` lays it out with its actor (lane) dim over
+    the mesh's data axes: each rank keeps its slice, with no
+    communication.  Outside a mesh the state comes back as it is.
+    Generators and 0-d leaves are left alone.
+    """
+    mesh = ambient_mesh()
+    if mesh is None:
+        return actors
+
+    def constrain(x):
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        if not is_dtensor(x):
+            from torch.distributed.tensor import DTensor, Replicate
+
+            x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return with_logical_constraint(x, ("actors",))
+
+    return tree_map(constrain, actors)
+
+
+def _whole(x):
+    """A DTensor gathered whole on every rank; anything else as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 class AsyncProgram:
@@ -199,13 +235,18 @@ class AsyncProgram:
                 trs.append(tr)
                 ms.append(m)
         chunks = tree_map(lambda *xs: torch.stack(xs), *trs)
-        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        metrics = {k: _whole(torch.stack([m[k] for m in ms]).mean()) for k in ms[0]}
         return state._replace(actors=ActorState(env_state, ts, carry, act.key)), chunks, metrics
 
     def push(self, state: AsyncState, chunks) -> AsyncState:
-        """Push each actor's chunk, in actor order; a full queue drops it and counts the drop."""
+        """Push each actor's chunk, in actor order; a full queue drops it and counts the drop.
+
+        A chunk of DTensors (actors sharded under a mesh) is gathered whole first.
+        """
         A = lanes.count(state.actors.key)
         queue, dropped = state.queue, state.dropped
+        if ambient_mesh() is not None:
+            chunks = tree_map(_whole, chunks)
         for a in range(A or 1):
             chunk = chunks if A is None else tree_map(lambda x: x[:, a], chunks)
             queue, ok = queue_push(queue, {"chunk": chunk,
@@ -249,6 +290,7 @@ class AsyncProgram:
         """One learner tick: sync, actor unrolls, pushes, learner pops: ``(state, metrics)``."""
         state = self.sync(state)
         state, chunks, metrics = self.act(state)
+        state = state._replace(actors=_shard_actors(state.actors))
         state = self.push(state, chunks)
         depth = state.queue.size
         state, items = self.pop(state)

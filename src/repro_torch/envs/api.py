@@ -82,13 +82,18 @@ def agent_ids(n: int) -> Tuple[str, ...]:
     return tuple(f"agent_{i}" for i in range(n))
 
 
+def shared_reward(ids, value) -> Dict[str, Any]:
+    """Broadcast one shared reward value to every agent id."""
+    return {a: value for a in ids}
+
+
 def restart(ids, observation) -> TimeStep:
     """The FIRST TimeStep of a batch of episodes: zero rewards, discount one."""
     obs = next(iter(observation.values()))
     n, device = obs.shape[0], obs.device
     return TimeStep(
         step_type=torch.full((n,), StepType.FIRST, dtype=torch.int32, device=device),
-        reward={a: torch.zeros(n, device=device) for a in ids},
+        reward=shared_reward(ids, torch.zeros(n, device=device)),
         discount=torch.ones(n, device=device),
         observation=observation,
     )
@@ -97,7 +102,7 @@ def restart(ids, observation) -> TimeStep:
 def transition(ids, reward, observation, done) -> TimeStep:
     """A MID/LAST TimeStep; ``reward`` is shared (N,) or a per-agent dict."""
     if not isinstance(reward, dict):
-        reward = {a: reward for a in ids}
+        reward = shared_reward(ids, reward)
     return TimeStep(
         step_type=torch.where(done, StepType.LAST, StepType.MID).to(torch.int32),
         reward=reward,

@@ -103,6 +103,18 @@ def _step_tokens(shape):
     return shape.global_batch, 1.0 / 3.0
 
 
+# ModelConfig fields the port keeps for the reference's overrides but reads nowhere:
+# the flash op and its plain version already visit only the causally live key blocks,
+# which is what the reference's ``attn_causal_skip`` switches on
+NOOP_OVERRIDES = ("attn_causal_skip",)
+
+
+def noop_overrides(cfg, overrides) -> list:
+    """The overrides that change a field in `NOOP_OVERRIDES` of ``cfg``: no-ops in the port."""
+    return sorted(k for k, v in (overrides or {}).items()
+                  if k in NOOP_OVERRIDES and getattr(cfg, k) != v)
+
+
 def dryrun_pair(
     arch: str,
     shape_name: str,
@@ -115,7 +127,10 @@ def dryrun_pair(
     """Trace one (arch, shape) step on the production mesh. Returns a result-record dict.
 
     `overrides` replaces ModelConfig fields (the §Perf hillclimb hook), e.g.
-    {"grad_accum": 8, "sharding": "fsdp_tp_sp"}.  ``mesh_shape`` (2 or 3
+    {"grad_accum": 8, "sharding": "fsdp_tp_sp"}; an override that changes a
+    field the port reads nowhere (`NOOP_OVERRIDES`) is named in the record's
+    ``noop_overrides``, a key the reference's record does not have, and the
+    step traced is what the other overrides alone give.  ``mesh_shape`` (2 or 3
     dims) replaces the production mesh's shape and ``input_shape`` (an
     `InputShape`) the named one, for small worlds and steps.
     """
@@ -124,6 +139,7 @@ def dryrun_pair(
 
     shape = get_input_shape(shape_name) if input_shape is None else input_shape
     cfg = shape_config(get_config(arch), shape)
+    noops = noop_overrides(cfg, overrides)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     if mesh_shape is None:
@@ -180,6 +196,8 @@ def dryrun_pair(
         "cost": {"flops": counter.cost.flops, "bytes accessed": counter.cost.bytes},
         "roofline": report.row(),
     }
+    if noops:
+        rec["noop_overrides"] = noops
     if verbose:
         bpd = rec["bytes_per_device"]
         r = rec["roofline"]

@@ -14,6 +14,37 @@ import math
 import torch
 
 
+def zeros(generator, shape, dtype=torch.float32):
+    """All zeros (nothing drawn; the generator gives the device)."""
+    return torch.zeros(shape, dtype=dtype, device=generator.device)
+
+
+def ones(generator, shape, dtype=torch.float32):
+    """All ones (nothing drawn; the generator gives the device)."""
+    return torch.ones(shape, dtype=dtype, device=generator.device)
+
+
+def normal(stddev: float = 1.0):
+    """Gaussian with standard deviation ``stddev``, drawn in float32."""
+
+    def init(generator, shape, dtype=torch.float32):
+        x = torch.randn(shape, generator=generator, device=generator.device)
+        return (x * stddev).to(dtype)
+
+    return init
+
+
+def truncated_normal(stddev: float = 1.0):
+    """Gaussian truncated at two standard deviations, then scaled by ``stddev``."""
+
+    def init(generator, shape, dtype=torch.float32):
+        x = torch.empty(shape, device=generator.device)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return (x * stddev).to(dtype)
+
+    return init
+
+
 def lecun_normal(in_axis: int = -2):
     """Fan-in scaled normal truncated at two standard deviations."""
 

@@ -5,10 +5,12 @@ pure ``apply(params, *inputs)``; params are nested dicts of tensors with
 the JAX pytree's keys and its ``w: (in, out)`` layout (``y = x @ w + b``),
 so weights cross between the packages with no transpose.
 
-Every layer also runs several seed lanes at once (`repro_torch.lanes`):
-params whose leaves lead with a lane axis ``(S, ...)`` apply to inputs
-whose lane axis sits just before the last batch axis, ``(..., S, N, in)``,
-as one batched product per layer (`affine`).
+Every layer but `Embed` also runs several seed lanes at once
+(`repro_torch.lanes`): params whose leaves lead with a lane axis
+``(S, ...)`` apply to inputs whose lane axis sits just before the last
+batch axis, ``(..., S, N, in)``, as one batched product per layer
+(`affine`).  ``axes()`` gives the logical sharding axes of `init`'s tree,
+as the reference's layers do (`repro_torch.distributed.sharding`).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ class Dense:
     out_dim: int
     use_bias: bool = True
     w_init: Callable = dataclasses.field(default_factory=initializers.lecun_normal)
+    logical_axes: tuple = (None, None)
 
     def init(self, generator):
         """Initialise ``{"w", ("b")}`` with `w_init` / zeros."""
@@ -56,6 +59,94 @@ class Dense:
     def apply(self, params, x):
         """Apply the affine map to the trailing dim of ``x``."""
         return affine(x, params["w"], params["b"] if self.use_bias else None)
+
+    def axes(self):
+        """Logical sharding axes matching `init`'s tree."""
+        out = {"w": self.logical_axes}
+        if self.use_bias:
+            out["b"] = (self.logical_axes[1],)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Embed:
+    """Token-embedding table lookup (with the tied-output `attend`)."""
+
+    vocab: int
+    dim: int
+    dtype: torch.dtype = torch.float32
+    logical_axes: tuple = (None, None)
+
+    def init(self, generator):
+        """Initialise the ``(vocab, dim)`` table from a unit normal."""
+        return {"embedding": initializers.normal(1.0)(generator, (self.vocab, self.dim),
+                                                      self.dtype)}
+
+    def apply(self, params, ids):
+        """The table's rows for integer ``ids`` (any shape): ``(*ids.shape, dim)``."""
+        return params["embedding"][ids]
+
+    def attend(self, params, x):
+        """Tied-output logits ``x @ embedding.T``."""
+        return x @ params["embedding"].T
+
+    def axes(self):
+        """Logical sharding axes matching `init`'s tree."""
+        return {"embedding": self.logical_axes}
+
+
+def _per_lane(v):
+    """A ``(dim,)`` feature vector as it is, or lane ones ``(S, dim)`` as ``(S, 1, dim)``."""
+    return v if v.dim() == 1 else v[:, None]
+
+
+@dataclasses.dataclass(frozen=True)
+class RMSNorm:
+    """Root-mean-square normalisation (no mean subtraction, float32 math)."""
+
+    dim: int
+    eps: float = 1e-6
+
+    def init(self, generator):
+        """Initialise the per-feature ``scale`` at ones."""
+        return {"scale": torch.ones(self.dim, device=generator.device)}
+
+    def apply(self, params, x):
+        """Normalise the trailing dim by its RMS, rescale, and return ``x``'s dtype."""
+        var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+        y = x * torch.rsqrt(var + self.eps)
+        return (y * _per_lane(params["scale"])).to(x.dtype)
+
+    def axes(self):
+        """Logical sharding axes matching `init`'s tree."""
+        return {"scale": (None,)}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerNorm:
+    """Layer normalisation: mean and (population) variance over the trailing dim."""
+
+    dim: int
+    eps: float = 1e-5
+
+    def init(self, generator):
+        """Initialise ``scale`` at ones and ``bias`` at zeros."""
+        dev = generator.device
+        return {"scale": torch.ones(self.dim, device=dev),
+                "bias": torch.zeros(self.dim, device=dev)}
+
+    def apply(self, params, x):
+        """Normalise the trailing dim, rescale and shift, and return ``x``'s dtype."""
+        x32 = x.float()
+        mean = torch.mean(x32, dim=-1, keepdim=True)
+        centered = x32 - mean
+        var = torch.mean(torch.square(centered), dim=-1, keepdim=True)
+        y = centered * torch.rsqrt(var + self.eps)
+        return (y * _per_lane(params["scale"]) + _per_lane(params["bias"])).to(x.dtype)
+
+    def axes(self):
+        """Logical sharding axes matching `init`'s tree."""
+        return {"scale": (None,), "bias": (None,)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +177,10 @@ class MLP:
                 x = self.activation(x)
         return x
 
+    def axes(self):
+        """Logical sharding axes matching `init`'s tree."""
+        return {f"dense_{i}": l.axes() for i, l in enumerate(self._layers())}
+
 
 @dataclasses.dataclass(frozen=True)
 class GRUCell:
@@ -115,3 +210,28 @@ class GRUCell:
         z = torch.sigmoid(xz + hz)
         n = torch.tanh(xn + r * hn)
         return (1.0 - z) * n + z * h
+
+    def axes(self):
+        """Logical sharding axes matching `init`'s tree."""
+        return {"wi": (None, None), "wh": (None, None), "bi": (None,), "bh": (None,)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Sequential:
+    """Compose layers in order, each reading its own ``layer_{i}`` params."""
+
+    layers: Sequence
+
+    def init(self, generator):
+        """Initialise one ``layer_{i}`` sub-tree per layer, in order, from ``generator``."""
+        return {f"layer_{i}": l.init(generator) for i, l in enumerate(self.layers)}
+
+    def apply(self, params, x):
+        """Apply each layer in sequence."""
+        for i, layer in enumerate(self.layers):
+            x = layer.apply(params[f"layer_{i}"], x)
+        return x
+
+    def axes(self):
+        """Logical sharding axes matching `init`'s tree."""
+        return {f"layer_{i}": l.axes() for i, l in enumerate(self.layers)}

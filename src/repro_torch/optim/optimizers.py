@@ -16,10 +16,15 @@ defaults differ from PyTorch's own: `adamw` defaults to
 ``weight_decay=0.0`` (``torch.optim.AdamW``: 0.01), and
 `clip_by_global_norm` divides by ``norm + 1e-9``
 (``torch.nn.utils.clip_grad_norm_``: ``+ 1e-6``).
+
+A learning rate is a float or a schedule (`repro_torch.optim.schedules`),
+which `_lr` evaluates at the optimizer's step count.  As in the
+reference, a learning rate scales a gradient in float32 whatever the
+gradient's dtype.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Union
 
 import torch
 
@@ -33,6 +38,19 @@ class Optimizer(NamedTuple):
     update: Callable
 
 
+ScalarOrSchedule = Union[float, Callable]
+
+
+def _lr(learning_rate: ScalarOrSchedule, count):
+    """The learning rate at step ``count``: a schedule's value there, or the float itself."""
+    return learning_rate(count) if callable(learning_rate) else learning_rate
+
+
+def _f32(x):
+    """``x`` promoted to at least float32, as JAX promotes it against a float32 rate."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def global_norm(tree) -> torch.Tensor:
     """The L2 norm of all leaves of ``tree`` together, in float32."""
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
@@ -41,6 +59,20 @@ def global_norm(tree) -> torch.Tensor:
 def apply_updates(params, updates):
     """``params + updates`` leafwise, in each param's dtype."""
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def scale(factor: float) -> Optimizer:
+    """Multiply every gradient by ``factor`` (in the gradient's dtype)."""
+
+    def init(params):
+        del params
+        return ()
+
+    def update(grads, state, params=None):
+        del params
+        return tree_map(lambda g: g * factor, grads), state
+
+    return Optimizer(init, update)
 
 
 def clip_by_global_norm(max_norm: float) -> Optimizer:
@@ -77,29 +109,95 @@ class AdamState(NamedTuple):
     nu: Any
 
 
+def _zero_count(params):
+    return torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+
+
 def adamw(
-    learning_rate: float,
+    learning_rate: ScalarOrSchedule,
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
     weight_decay: float = 0.0,
 ) -> Optimizer:
-    """Adam with decoupled weight decay (off by default, as in the reference)."""
+    """Adam with decoupled weight decay (off by default, as in the reference).
+
+    The first moments take each param's dtype, the second moments float32.
+    """
 
     def init(params):
         mu = tree_map(torch.zeros_like, params)
         nu = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
-        device = tree_leaves(params)[0].device
-        return AdamState(torch.zeros((), dtype=torch.int32, device=device), mu, nu)
+        return AdamState(_zero_count(params), mu, nu)
 
     def update(grads, state, params):
         count = state.count + 1
+        lr = _lr(learning_rate, count)
         mu = tree_map(lambda m, g: _first_moment(m, g, b1), state.mu, grads)
         nu = tree_map(lambda v, g: _second_moment(v, g, b2), state.nu, grads)
         bc = _bias_corrections(count, b1, b2)
-        return (tree_map(lambda m, v, p: _adam_update(m, v, p, bc, learning_rate, eps,
-                                                      weight_decay), mu, nu, params),
+        return (tree_map(lambda m, v, p: _adam_update(m, v, p, bc, lr, eps, weight_decay),
+                         mu, nu, params),
                 AdamState(count, mu, nu))
+
+    return Optimizer(init, update)
+
+
+def adam(learning_rate: ScalarOrSchedule, **kw) -> Optimizer:
+    """`adamw` with no weight decay."""
+    return adamw(learning_rate, weight_decay=0.0, **kw)
+
+
+class SgdState(NamedTuple):
+    """SGD's step count and momentum tree (``()`` without momentum)."""
+
+    count: Any
+    momentum: Any
+
+
+def sgd(learning_rate: ScalarOrSchedule, momentum: float = 0.0) -> Optimizer:
+    """Stochastic gradient descent, with heavy-ball momentum when ``momentum`` is nonzero."""
+
+    def init(params):
+        mom = tree_map(torch.zeros_like, params) if momentum else ()
+        return SgdState(_zero_count(params), mom)
+
+    def update(grads, state, params=None):
+        del params
+        count = state.count + 1
+        lr = _lr(learning_rate, count)
+        if momentum:
+            mom = tree_map(lambda m, g: momentum * m + g, state.momentum, grads)
+            return tree_map(lambda m: -lr * _f32(m), mom), SgdState(count, mom)
+        return tree_map(lambda g: -lr * _f32(g), grads), SgdState(count, ())
+
+    return Optimizer(init, update)
+
+
+class RmspropState(NamedTuple):
+    """RMSProp's step count and float32 second-moment tree."""
+
+    count: Any
+    nu: Any
+
+
+def rmsprop(learning_rate: ScalarOrSchedule, decay: float = 0.9,
+            eps: float = 1e-8) -> Optimizer:
+    """RMSProp: each gradient over the root of its running mean square (plus ``eps``)."""
+
+    def init(params):
+        nu = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        return RmspropState(_zero_count(params), nu)
+
+    def update(grads, state, params=None):
+        del params
+        count = state.count + 1
+        lr = _lr(learning_rate, count)
+        nu = tree_map(lambda v, g: decay * v + (1 - decay) * torch.square(g.float()),
+                      state.nu, grads)
+        updates = tree_map(lambda g, v: (-lr * g.float() / (torch.sqrt(v) + eps)).to(g.dtype),
+                           grads, nu)
+        return updates, RmspropState(count, nu)
 
     return Optimizer(init, update)
 
@@ -117,11 +215,11 @@ def _bias_corrections(count, b1, b2):
     return 1 - b1**c, 1 - b2**c
 
 
-def _adam_update(m, v, p, bc, learning_rate, eps, weight_decay):
+def _adam_update(m, v, p, bc, lr, eps, weight_decay):
     step = (m.float() / bc[0]) / (torch.sqrt(v / bc[1]) + eps)
     if weight_decay:
         step = step + weight_decay * p.float()
-    return (-learning_rate * step).to(p.dtype)
+    return (-lr * step).to(p.dtype)
 
 
 @torch.no_grad()

@@ -5,7 +5,8 @@
   update counts (the replay family's) come back as ints;
 * `latest_step` picks the highest step; a missing key raises `KeyError`;
 * the keys the port writes for a `TrainState` are the keys the JAX package
-  writes for the same one (ippo, rec_ippo, vdn): a `TrainState` JAX saved
+  writes for the same one (ippo, rec_ippo, vdn, mappo, qmix, maddpg,
+  rec_madqn, dial): a `TrainState` JAX saved
   restores in the port equal to `convert.params_from_jax` of it, bitwise,
   and one the port saved restores in JAX equal to the original;
 * `fresh_system_state` carries a restored trainer into new envs.
@@ -33,7 +34,11 @@ from repro_torch.systems.registry import make_pair, smoke_overrides  # noqa: E40
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 CPU = "cpu"
-SYSTEMS = ["ippo", "rec_ippo", "vdn"]
+# beyond ippo, rec_ippo and vdn: a centralised critic (mappo), a mixer (qmix), two Adam
+# groups and target nets (maddpg, on continuous spread), a sequence learner (rec_madqn)
+# and the DRU (dial)
+SYSTEMS = ["ippo", "rec_ippo", "vdn", "mappo", "qmix", "maddpg", "rec_madqn", "dial"]
+ENV = {"maddpg": "spread"}  # every other system on matrix_game
 
 
 def _equal(a, b):
@@ -79,17 +84,20 @@ def test_missing_key_raises(tmp_path):
 
 
 def _jax_train(name, seed=0):
-    _, system = jax_make_pair(name, "matrix_game", **jax_smoke(name))
+    _, system = jax_make_pair(name, ENV.get(name, "matrix_game"), **jax_smoke(name))
     return system.init_train(jax.random.key(seed))
 
 
 def _port_train(name, seed=0):
-    _, system = make_pair(name, "matrix_game", **smoke_overrides(name))
+    _, system = make_pair(name, ENV.get(name, "matrix_game"), **smoke_overrides(name))
     return system.init_train(torch.Generator(CPU).manual_seed(seed))
 
 
 def _from_jax(name, train):
-    return replay_train_from_jax(train) if name == "vdn" else params_from_jax(train)
+    port = _port_train(name)
+    if isinstance(port.steps, int):  # the replay family counts updates on the host
+        return replay_train_from_jax(train)
+    return params_from_jax(train)
 
 
 @pytest.mark.parametrize("name", SYSTEMS)

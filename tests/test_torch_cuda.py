@@ -78,6 +78,7 @@ from repro_torch.kernels.fused_xent import ref as xent_ref  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan,
     selective_scan_bwd,
+    selective_scan_bwd_blocked,
     selective_scan_ref,
     selective_scan_ref_vjp,
 )
@@ -408,6 +409,34 @@ def test_selective_scan_bwd_kernel_matches_plain_version(cuda, b, S, di, N, dtyp
         assert x.dtype == y.dtype == inp.dtype
         torch.testing.assert_close(x.float(), y.float(), atol=tol, rtol=tol)
         assert torch.equal(x, z)
+
+
+# csrc/selective_scan_bwd.cu's kChunk and lanes_for(N) (128 threads x 4 states / N), as
+# tests/test_torch_selective_scan_bwd.py copies them
+BWD_CHUNK = 16
+# normwise: each gradient's largest difference against its largest magnitude (plus one).
+# The same sums in the same order, but the kernel's ex2.approx exponentials move every
+# a_t, and so every sum by a share of its terms' size (chip_smoke.SCAN_BWD_EMU_TOL)
+EMULATION_TOL = 3e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,S,di,N", [(2, 37, 200, 16), (1, 64, 1024, 16), (2, 33, 130, 8),
+                                      (3, 17, 64, 4), (1, 1, 40, 16), (2, 250, 200, 16),
+                                      (2, 15, 130, 16), (2, 17, 130, 8), (3, 1, 40, 4)])
+def test_selective_scan_bwd_kernel_matches_its_blocked_emulation(cuda, b, S, di, N):
+    """float32: the kernel against `selective_scan_bwd_blocked`, its algebra and sum order
+    written out step by step (held against ``jax.vjp`` on the CPU), so that the two cannot
+    drift apart unnoticed."""
+    t = _scan_inputs(b, S, di, N, torch.float32, cuda, seed=S)
+    g = torch.Generator().manual_seed(di)
+    dy = torch.randn(b, S, di, generator=g).to(cuda)
+    dh = torch.randn(b, di, N, generator=g).to(cuda)
+    got = selective_scan_bwd(*t.values(), dy, dh)
+    want = selective_scan_bwd_blocked(*t.values(), dy, dh, BWD_CHUNK, 128 * 4 // N)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.float32
+        assert float((x - y).abs().max()) <= EMULATION_TOL * (1 + float(y.abs().max()))
 
 
 @pytest.mark.cuda

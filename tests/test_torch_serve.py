@@ -4,8 +4,10 @@
   carry zeroed on admission and at the episode boundary, as
   tests/test_serve.py pins them for the reference;
 * greedy served actions equal the JAX `DecisionEngine`'s bitwise on
-  matrix_game for ippo, rec_ippo (GRU) and rec_ippo (linear core), with
-  converted params and the JAX resets injected (`convert.reset_from_jax`);
+  matrix_game for ippo, rec_ippo (GRU), rec_ippo (linear core), vdn and
+  mappo, with converted params and the JAX resets injected
+  (`convert.reset_from_jax`); maddpg's continuous actions on spread within
+  1e-5;
 * served greedy returns equal the port evaluator's for the same resets,
   bitwise, at two pool sizes; sample mode differs from greedy;
 * `poisson_requests`' arrival ticks and uids equal the reference's
@@ -14,7 +16,7 @@
   policy it was saved from; a directory the JAX package wrote loads in the
   port and serves the JAX engine's actions.
 
-Everything is float32 on the CPU; every comparison is bitwise.
+Everything is float32 on the CPU; every comparison but maddpg's is bitwise.
 """
 import json
 
@@ -155,7 +157,9 @@ def _jax_reset(system, key):
     ("ippo", {}),
     ("rec_ippo", {"recurrent_core": "gru"}),
     ("rec_ippo", {"recurrent_core": "linear"}),
-], ids=["ippo", "rec_ippo-gru", "rec_ippo-linear"])
+    ("vdn", {}),
+    ("mappo", {}),
+], ids=["ippo", "rec_ippo-gru", "rec_ippo-linear", "vdn", "mappo"])
 def test_served_greedy_actions_bitwise_match_jax_engine(name, extra):
     from repro.bench.throughput import smoke_overrides as jax_smoke
 
@@ -180,6 +184,32 @@ def test_served_greedy_actions_bitwise_match_jax_engine(name, extra):
         assert np.float32(tr.episode_return) == np.float32(jr.episode_return)
         for a in tsys.spec.agent_ids:
             assert np.float32(tr.agent_returns[a]) == np.float32(jr.agent_returns[a])
+
+
+def test_served_continuous_actions_match_jax_engine():
+    """maddpg on continuous spread: the deterministic actor's actions and the returns
+    within 1e-5 of the JAX engine's (float32 matmuls summed in another order)."""
+    from repro.bench.throughput import smoke_overrides as jax_smoke
+
+    _, jsys = jax_make_pair("maddpg", "spread", **jax_smoke("maddpg"))
+    _, tsys = make_pair("maddpg", "spread", **smoke_overrides("maddpg"))
+    jtrain = jsys.init_train(jax.random.key(3))
+    keys = jax.random.split(jax.random.key(11), 3)
+    jeng = JaxEngine(jsys, jtrain, max_slots=2, record_actions=True, warmup=False)
+    teng = _engine(tsys, params_from_jax(jtrain), max_slots=2, record_actions=True)
+    for i in range(3):
+        jeng.submit(JaxRequest(uid=i, key=keys[i]))
+        teng.submit(ServeRequest(uid=i, reset=reset_from_jax(_jax_reset(jsys, keys[i]))))
+    jdone = sorted(jeng.run_until_drained(), key=lambda r: r.uid)
+    tdone = sorted(teng.run_until_drained(), key=lambda r: r.uid)
+    assert [r.slot for r in tdone] == [r.slot for r in jdone]
+    for jr, tr in zip(jdone, tdone):
+        assert len(tr.actions) == len(jr.actions) > 0
+        for jd, td in zip(jr.actions, tr.actions):
+            for a in tsys.spec.agent_ids:
+                np.testing.assert_allclose(np.asarray(td[a]), np.asarray(jd[a]),
+                                           atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(tr.episode_return, jr.episode_return, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["ippo", "rec_ippo"])
