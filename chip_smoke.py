@@ -59,7 +59,8 @@ InternLM2-1.8B dense LM training, the third slice:
     80, bf16), at the training shape (4, 16/8, 4096, 128) bf16, non-causal
     on a ragged S, and at the bf16 wgmma design's tile edges (S = 127, 129,
     200 around 128-row query tiles, causal and not; windows that start
-    inside a 128-key tile); 2e-5 in float32, in bf16 2**-6 of the attention
+    inside a 128-key tile) at head_dim 128, 64, 80 and 32, and a smoke
+    config's prefill at 32; 2e-5 in float32, in bf16 2**-6 of the attention
     of |v| an element and 1e-2 of a query row's norm.  fused_xent against
     its plain version on tests/test_kernels.py's sweep (V = 77, ragged T),
     at the bf16 design's edges (T = 129, V = 255 and 257 around 256-wide
@@ -67,7 +68,8 @@ InternLM2-1.8B dense LM training, the third slice:
     and 2e-2 a token in bf16 (both round the logits to bf16) with 1e-4 a
     token on average, and at the training shape (16,384, 2048, 92,544)
     bf16;
-12. kernel timing at the training shapes, with PyTorch's
+12. kernel timing at the training shapes (and flash_attention at a smoke
+    config's heads, 4/2 at hd 32, over 4 x 2048), with PyTorch's
     scaled_dot_product_attention timed beside flash_attention as a
     yardstick and the cuBLAS product ``x @ w`` beside fused_xent as context
     for its GEMM part (``gemm_ms``; it does not compute the loss); the port
@@ -226,8 +228,8 @@ admission (its new shapes join 11's parity: Granite's 32/8 heads at S =
 
 The hybrid, vlm and audio families (Zamba2-2.7B, LLaVA-NeXT-Mistral-7B,
 MusicGen-Large), the twelfth slice; flash_attention lies on every prefill
-and every engine admission, Zamba2's head_dim 80 on the kernel's WMMA
-instance (its new shapes join 11's parity: Zamba2's 32/32 heads at hd 80,
+and every engine admission, Zamba2's head_dim 80 on the kernel's wgmma
+design (its new shapes join 11's parity: Zamba2's 32/32 heads at hd 80,
 window 4096, at S = 16, 37, 64 and 4 x 2048, and a window of 1024 inside
 S = 2048; MusicGen's 32/32 at hd 64, 4 x 2048; LLaVA's 32/8 at 4 x 4096
 and at a ragged 2,917):
@@ -321,7 +323,7 @@ codebook):
 Llama-3.1-405B and Kimi-K2 at their published widths, the pure-SSM Mamba2
 family, and Granite-8B and Minitron-8B training, the sixteenth slice;
 flash_attention lies on every prefill (Kimi's head_dim 112 on the wgmma
-design computed at 128 columns; 405B's 16 query heads a KV head),
+design, at 112 columns; 405B's 16 query heads a KV head),
 fused_xent on every training loss (Minitron's 256,000-token vocab):
 
 51. kernel parity: flash_attention at head_dim 112 on FLASH_CASES' wgmma
@@ -448,19 +450,30 @@ FLASH_CASES = [
     (4, 32, 8, 2048, 128, True, 0, torch.bfloat16),
     (4, 16, 16, 2048, 128, True, 0, torch.bfloat16),
     (1, 32, 8, 512, 128, True, 0, torch.bfloat16),
-    # slice 12: Zamba2's shared block (32/32 heads, hd 80: the WMMA instance; window
-    # 4096) at the engine's short prompts and the launcher's 4 x 2048, and a window of
-    # 1024 inside S = 2048; MusicGen's 32/32 at hd 64; LLaVA's 32/8 at 4 x 4096 and a
-    # ragged S (2,880 vision + 37 text positions, not a multiple of a tile)
+    # slice 12: Zamba2's shared block (32/32 heads, hd 80, window 4096) at the engine's
+    # short prompts and the launcher's 4 x 2048, and a window of 1024 inside S = 2048;
+    # MusicGen's 32/32 at hd 64; LLaVA's 32/8 at 4 x 4096 and a ragged S (2,880 vision +
+    # 37 text positions, not a multiple of a tile)
     *[(1, 32, 32, S, 80, True, 4096, torch.bfloat16) for S in (16, 37, 64)],
     (4, 32, 32, 2048, 80, True, 4096, torch.bfloat16),
     (1, 32, 32, 2048, 80, True, 1024, torch.bfloat16),
     (4, 32, 32, 2048, 64, True, 0, torch.bfloat16),
     (4, 32, 8, 4096, 128, True, 0, torch.bfloat16),
     (1, 32, 8, 2917, 128, True, 0, torch.bfloat16),
+    # hd 80 and 32 on the wgmma design (computed at HD columns, P V an n80 / n32
+    # product): its edges (128-row query tiles and 128-key tiles, causal and not, a
+    # window starting inside a tile), a smoke config's prefill (4/2 heads at hd 32, and
+    # Zamba2's smoke window of 32 inside S)
+    *[(1, 4, 2, S, hd, causal, 0, torch.bfloat16) for hd in (80, 32) for S in (127, 129)
+      for causal in (True, False)],
+    *[(1, 2, 1, 300, hd, True, 70, torch.bfloat16) for hd in (80, 32)],
+    *[(1, 32, 32, S, 32, True, 4096, torch.bfloat16) for S in (16, 37)],
+    (2, 4, 2, 64, 32, True, 0, torch.bfloat16),
+    (2, 4, 4, 64, 32, True, 32, torch.bfloat16),
 ]
 FLASH_PATH = (4, 16, 8, 4096, 128)  # InternLM2-1.8B at batch 4 x 4096
 FLASH_SERVE_PATH = (4, 32, 8, 2048, 128)  # Granite-8B's prefill at batch 4 x 2048
+FLASH_SMOKE_PATH = (4, 4, 2, 2048, 32)  # a smoke config's heads (hd 32) at 4 x 2048
 # (T, d, V): tests/test_kernels.py:93-98, then the bf16 design's edges
 XENT_CASES = [(64, 128, 1000), (100, 64, 512), (128, 32, 2048), (32, 16, 77),
               (129, 64, 255), (129, 128, 257), (64, 40, 1001)]
@@ -619,7 +632,7 @@ FAMILY_TRAIN_PARITY = {"olmoe-1b-7b": dict(num_layers=1),
 LM_CKPT_ROOT = "results/port/chip_smoke/lm_ckpt"  # git-ignored
 # slice 16, Llama-3.1-405B and Kimi-K2 at their published widths, the pure-SSM mamba2
 # family, Granite-8B and Minitron-8B training.  flash_attention's head_dim 112 instance
-# (Kimi's 7168 / 64; the wgmma design computed at 128 columns): FLASH_CASES' wgmma edges
+# (Kimi's 7168 / 64; the wgmma design at 112 columns): FLASH_CASES' wgmma edges
 # at 112 (128-row query tiles, 128-key tiles, windows starting inside a tile, non-causal
 # on a ragged S), float32 at 112, Kimi's 8:1 and 405B's 16:1 grouping at the engine's
 # short prompts, then both prefills as they run
@@ -3905,6 +3918,8 @@ def main():
             f"{r['bytes']} B; flop {r['flop_ms']:.3f} ms for {r['flops']} flop at 989 TFLOP/s) "
             f"{tag}"
         )
+    smoke_flash_row = flash_timing(fops, fref, FLASH_SMOKE_PATH)
+    _print_flash_row(smoke_flash_row, "a smoke config's heads", tag)
     print(f"slice 3 kernels: parity and timing in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -4063,10 +4078,11 @@ def main():
                                            "library_ms", "shape")},
         "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
         "by_shape": [flash_row, attn_serving["serving_row"], *family_serving["serving_rows"],
-                     *frontier["flash_rows"].values()],
-        "design": "bf16 head_dim 64/112/128: wgmma fed by a TMA/mbarrier ring, producer "
-                  "warpgroup (112 computed at 128 columns, TMA zero-filling 112-127); bf16 "
-                  "head_dim 32/80: WMMA 16x16x16; float32: SIMT",
+                     *frontier["flash_rows"].values(), smoke_flash_row],
+        "design": "bf16, every head_dim (32/64/80/112/128): wgmma fed by a TMA/mbarrier ring, "
+                  "producer warpgroup, computed at the head's own width (S over HD/16 k-steps, "
+                  "P V an m64nHDk16 wgmma; TMA zero-fills a 64-column chunk past HD); "
+                  "float32: SIMT",
         "gpu": gpu,
     }, {
         "name": "fused_xent",

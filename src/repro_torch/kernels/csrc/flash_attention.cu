@@ -26,8 +26,8 @@
 // causal) that is 2.75e11 flop, 0.28 ms at 989 TFLOP/s on bf16 tensor cores;
 // the bytes (q, k, v read once, out written once: 201 MB in bf16) take
 // 0.06 ms.  What the design does about the operations:
-//   * bf16, head_dim 64, 112 and 128 (the training path's 128): the products
-//     run as wgmma with float32 accumulators in registers (hopper.cuh).  A block
+//   * bf16, every head_dim (32, 64, 80, 112, 128): the products run as wgmma
+//     with float32 accumulators in registers (hopper.cuh).  A block
 //     is two consumer warpgroups of 64 query rows and one producer
 //     warpgroup, which gives its registers to the consumers (setmaxnreg).
 //     The producer loads the block's Q tile once and streams 128-key tiles
@@ -48,20 +48,28 @@
 //     reads zeros, never the next head.  Blocks start with the last query
 //     tiles, which have the most kv tiles under a causal mask, so the grid's
 //     tail is short tiles.
-//     head_dim 112 (Kimi-K2's 7168 / 64) is computed at 128 columns: the
-//     tensor maps declare the row as 112 columns (224 B, a multiple of 16),
-//     so TMA fills columns 112-127 of every Q, K and V box with zeros; S is
-//     unchanged, O's padding columns come out zero, only 112 columns are
-//     stored, and the scale is 1/sqrt(112).  The padding costs 1 - 112/128
-//     of the tensor-core work and none of the bytes.
-//   * bf16, head_dim 32 and 80 (no training path uses them): WMMA 16x16x16,
-//     64 query rows a block, one warp per 16 rows, 64-key tiles staged with
-//     plain loads, S and P through shared memory, the output accumulator in
-//     shared memory.  `launch_bf16` picks the design by head_dim.
-//   * bf16 on either design: S is scaled by 1/sqrt(HD) in float32 (the same
-//     value as scaling q first, kernel.py:66, with one rounding fewer), the
-//     softmax runs in float32, and P is rounded to bf16 for P V; l sums the
-//     rounded weights that P V uses.
+//     Both products run at the head's own width: S = Q K^T takes HD / 16
+//     k-steps and O += P V is one m64nHDk16 wgmma a 16-key step, so no
+//     tensor-core work multiplies padding.  Shared memory holds each tile in
+//     64-column chunks (HD / 64 rounded up); the tensor maps declare the row
+//     as HD columns (2 HD bytes, a multiple of 16), so TMA fills the columns
+//     past HD of a chunk with zeros (at HD = 32, 80 and 112), which costs
+//     shared memory and none of the bytes from device memory.  At HD = 80 the
+//     fifth k-step of S reads the first 32 bytes of the second chunk's rows,
+//     as a k-step inside a chunk does.  P V reads V MN-major through the
+//     128-byte-swizzled chunks as one n80 (n112) wgmma a 16-key step, not
+//     an n64 product plus an n16 (n48) tail in a layout of its own: it takes
+//     all of chunk 0 and the first 16 (48) columns of chunk 1, the chunk
+//     stride as the leading byte offset.  The swizzle is a function of the
+//     shared-memory address, so a product narrower than its last chunk
+//     reads the bytes a full one would and never the columns past it; the
+//     n32 product reads half of chunk 0.  Held against the plain version on
+//     an H100 at every case of chip_smoke and the card test, this form is
+//     right at every width, so no split and no second layout are needed.
+//   * bf16: S is scaled by 1/sqrt(HD) in float32 (the same value as scaling q
+//     first, kernel.py:66, with one rounding fewer), the softmax runs in
+//     float32, and P is rounded to bf16 for P V; l sums the rounded weights
+//     that P V uses.
 //   * float32 runs on the SIMT cores, which keeps the reference's float32
 //     products exactly (the tensor cores' TF32 would not): q scaled in
 //     float32 first, a 64-row query tile and 32-key tiles in shared memory
@@ -72,7 +80,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 
@@ -84,8 +91,6 @@ constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
 constexpr int kRows = kBQ / 16;   // query rows per thread
 constexpr int kCols = kBKV / 8;   // score columns per thread
 constexpr float kNegInf = -1e30f;
-
-namespace wmma = nvcuda::wmma;
 
 // ------------------------------------------------------------ float32, SIMT
 
@@ -227,163 +232,9 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-// --------------------------------------------------------- bf16, tensor cores
+// ------------------------------------------- bf16, wgmma fed by a TMA ring
 
 using bf16 = __nv_bfloat16;
-constexpr int kTcBQ = 64;        // query rows per block
-constexpr int kTcBKV = 64;       // keys per tile
-constexpr int kTcThreads = 128;  // 4 warps, 16 query rows each
-
-// Shared-memory plan of the tensor-core kernel: byte offsets of its slabs,
-// each a multiple of 32 bytes as WMMA's loads and stores need.
-template <int HD>
-struct TcPlan {
-  static constexpr int ldq = HD + 8;       // bf16 rows of Q, K, V
-  static constexpr int lds = kTcBKV + 4;   // float rows of S
-  static constexpr int ldp = kTcBKV + 8;   // bf16 rows of P
-  static constexpr int ldo = HD + 4;       // float rows of the output accumulator
-  static constexpr int k = kTcBQ * ldq * 2;
-  static constexpr int v = k + kTcBKV * ldq * 2;
-  static constexpr int s = v + kTcBKV * ldq * 2;
-  static constexpr int p = s + kTcBQ * lds * 4;
-  static constexpr int o = p + kTcBQ * ldp * 2;
-  static constexpr int bytes = o + kTcBQ * ldo * 4;
-};
-
-// rows [r0, r0 + rows) of a (S, HD) bf16 matrix into shared memory (row
-// stride ld), 8 values a load; rows at or past S are zero
-template <int HD>
-__device__ __forceinline__ void stage_rows(bf16* dst, int ld, const bf16* src, int r0,
-                                           int rows, int S) {
-  for (int i = threadIdx.x; i < rows * HD / 8; i += kTcThreads) {
-    const int r = i / (HD / 8), c = 8 * (i % (HD / 8));
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * HD + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads)
-flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, bf16* __restrict__ out, int Hq,
-                            int Hkv, int S, int causal, int window, float scale) {
-  static_assert(HD % 16 == 0, "HD must be a multiple of 16");
-  using P = TcPlan<HD>;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(tc_smem);
-  bf16* sK = reinterpret_cast<bf16*>(tc_smem + P::k);
-  bf16* sV = reinterpret_cast<bf16*>(tc_smem + P::v);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int q0 = blockIdx.x * kTcBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const bf16* qh = q + (static_cast<size_t>(b) * Hq + h) * S * HD;
-  const bf16* kh = k + (static_cast<size_t>(b) * Hkv + hk) * S * HD;
-  const bf16* vh = v + (static_cast<size_t>(b) * Hkv + hk) * S * HD;
-  bf16* oh = out + (static_cast<size_t>(b) * Hq + h) * S * HD;
-
-  // this warp's 16 rows of S, P and the output accumulator
-  float* sS = reinterpret_cast<float*>(tc_smem + P::s) + 16 * warp * P::lds;
-  bf16* sP = reinterpret_cast<bf16*>(tc_smem + P::p) + 16 * warp * P::ldp;
-  float* sO = reinterpret_cast<float*>(tc_smem + P::o) + 16 * warp * P::ldo;
-
-  stage_rows<HD>(sQ, P::ldq, qh, q0, kTcBQ, S);
-  for (int i = lane; i < 16 * HD; i += 32) sO[(i / HD) * P::ldo + i % HD] = 0.0f;
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[HD / 16];
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks)
-    wmma::load_matrix_sync(qf[ks], sQ + 16 * warp * P::ldq + 16 * ks, P::ldq);
-
-  // the softmax: lane owns row lr of the warp's 16 and columns 32 lh .. 32 lh + 31
-  const int lr = lane / 2, lh = lane % 2;
-  const int qp = q0 + 16 * warp + lr;
-  float m = kNegInf, l = 0.0f;
-
-  const int q_last = min(q0 + kTcBQ, S) - 1;
-  const int kv_end = causal ? q_last + 1 : S;
-  const int kv_begin = window ? max(0, q0 - window + 1) : 0;
-
-  for (int k0 = (kv_begin / kTcBKV) * kTcBKV; k0 < kv_end; k0 += kTcBKV) {
-    __syncthreads();  // every warp is done with the previous K and V tiles
-    stage_rows<HD>(sK, P::ldq, kh, k0, kTcBKV, S);
-    stage_rows<HD>(sV, P::ldq, vh, k0, kTcBKV, S);
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < kTcBKV / 16; ++j) {  // S = Q K^T, 16 keys at a time
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.0f);
-#pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sK + 16 * j * P::ldq + 16 * ks, P::ldq);
-        wmma::mma_sync(sf, qf[ks], kf, sf);
-      }
-      wmma::store_matrix_sync(sS + 16 * j, sf, P::lds, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    float sc[32];
-    unsigned live = 0;
-    float mx = kNegInf;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int kp = k0 + 32 * lh + c;
-      sc[c] = sS[lr * P::lds + 32 * lh + c] * scale;
-      if (kp < S && (!causal || kp <= qp) && (!window || kp > qp - window)) {
-        live |= 1u << c;
-        mx = fmaxf(mx, sc[c]);
-      }
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    float rs = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const bf16 p = __float2bfloat16((live >> c) & 1u ? expf(sc[c] - m_new) : 0.0f);
-      sP[lr * P::ldp + 32 * lh + c] = p;
-      rs += __bfloat162float(p);  // the weights P V uses
-    }
-    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-    l = l * alpha + rs;
-    m = m_new;
-    for (int c = 0; c < HD / 2; ++c) sO[lr * P::ldo + (HD / 2) * lh + c] *= alpha;
-    __syncwarp();
-
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf[kTcBKV / 16];
-#pragma unroll
-    for (int kk = 0; kk < kTcBKV / 16; ++kk) wmma::load_matrix_sync(pf[kk], sP + 16 * kk, P::ldp);
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {  // O += P V, 16 output columns at a time
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::load_matrix_sync(of, sO + 16 * n, P::ldo, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kTcBKV / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, sV + 16 * kk * P::ldq + 16 * n, P::ldq);
-        wmma::mma_sync(of, pf[kk], vf, of);
-      }
-      wmma::store_matrix_sync(sO + 16 * n, of, P::ldo, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  if (qp < S) {
-    const float norm = fmaxf(l, 1e-30f);
-    for (int c = 0; c < HD / 2; ++c) {
-      const int col = (HD / 2) * lh + c;
-      oh[static_cast<size_t>(qp) * HD + col] = __float2bfloat16(sO[lr * P::ldo + col] / norm);
-    }
-  }
-}
-
-// ------------------------------------------- bf16, wgmma fed by a TMA ring
 
 constexpr int kWgGroups = 2;                     // consumer warpgroups, 64 query rows each
 constexpr int kWgBQ = 64 * kWgGroups;            // query rows per block
@@ -395,11 +246,13 @@ constexpr int kWgThreads = 128 * (kWgGroups + 1);  // + the producer warpgroup
 constexpr int kWgProducerRegs = 24, kWgConsumerRegs = 240;
 
 // Shared-memory plan (bytes from a 1,024-aligned base): Q, then the K and V
-// stages; each tile is HD / 64 chunks of (rows x 64) bf16, 128 bytes a row.
+// stages; each tile is `chunks` chunks of (rows x 64) bf16, 128 bytes a row,
+// the columns past HD zero.
 template <int HD>
 struct WgPlan {
-  static constexpr int tile = kWgBKV * HD * 2;
-  static constexpr int k = kWgBQ * HD * 2;
+  static constexpr int chunks = (HD + 63) / 64;
+  static constexpr int tile = kWgBKV * chunks * 128;
+  static constexpr int k = kWgBQ * chunks * 128;
   static constexpr int v = k + kWgStages * tile;
   static constexpr int bytes = v + kWgStages * tile + 1024;  // + the alignment slack
 };
@@ -493,9 +346,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2], const uint32_t (&p)
   }
 }
 
-// the columns the wgmma design computes at: head_dim rounded up to a 64-column chunk
-__host__ __device__ constexpr int wg_cols(int hd) { return (hd + 63) / 64 * 64; }
-
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -503,9 +353,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ out,
                              int Hq, int Hkv, int S, int causal, int window, float scale_log2) {
   static_assert(HD % 16 == 0, "HD must be a multiple of 16 (8 columns a store, 16 a k-step)");
-  constexpr int HDP = wg_cols(HD);  // columns HD .. HDP - 1 are TMA's zero fill
-  using P = WgPlan<HDP>;
-  constexpr int kChunks = HDP / 64;  // one swizzle row of 64 columns a chunk
+  using P = WgPlan<HD>;
   extern __shared__ unsigned char wg_smem_raw[];
   // K and V have rings of their own: K_i is free once S_i is done, V_i once P_i V_i is
   __shared__ uint64_t q_full, k_full[kWgStages], k_empty[kWgStages], v_full[kWgStages],
@@ -540,8 +388,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (warp >= 4 * kWgGroups) {  // the producer warpgroup: one thread issues every copy
     hopper::regs_dealloc<kWgProducerRegs>();
     if (threadIdx.x == 128 * kWgGroups) {
-      hopper::mbar_arrive_expect_tx(&q_full, kWgBQ * HDP * 2);  // a box's bytes, fill included
-      for (int c = 0; c < kChunks; ++c)
+      hopper::mbar_arrive_expect_tx(&q_full, P::k);  // a box's bytes, fill included
+      for (int c = 0; c < P::chunks; ++c)
         hopper::tma_load_3d(smem + c * kWgBQ * 128, &q_map, &q_full, 64 * c, q0, bh_q);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kWgStages, parity = ((i / kWgStages) & 1) ^ 1;
@@ -550,11 +398,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         unsigned char* sv = smem + P::v + s * P::tile;
         hopper::mbar_wait(&k_empty[s], parity);
         hopper::mbar_arrive_expect_tx(&k_full[s], P::tile);
-        for (int c = 0; c < kChunks; ++c)
+        for (int c = 0; c < P::chunks; ++c)
           hopper::tma_load_3d(sk + c * kWgBKV * 128, &k_map, &k_full[s], 64 * c, k0, bh_kv);
         hopper::mbar_wait(&v_empty[s], parity);
         hopper::mbar_arrive_expect_tx(&v_full[s], P::tile);
-        for (int c = 0; c < kChunks; ++c)
+        for (int c = 0; c < P::chunks; ++c)
           hopper::tma_load_3d(sv + c * kWgBKV * 128, &v_map, &v_full[s], 64 * c, k0, bh_kv);
       }
     }
@@ -580,9 +428,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     return hopper::desc(hopper::smem_addr(smem + P::v + s * P::tile), kWgBKV * 128, 1024);
   };
 
-  float o[HDP / 2];
+  float o[HD / 2];
 #pragma unroll
-  for (int j = 0; j < HDP / 2; ++j) o[j] = 0.0f;
+  for (int j = 0; j < HD / 2; ++j) o[j] = 0.0f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;  // m in log2 units
   uint32_t p[kWgBKV / 4];  // P_{i-1}: the A fragments of the product in flight
   hopper::mbar_wait(&q_full, 0);
@@ -603,7 +451,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     float sc[kWgBKV / 2];
     my_turn();
     hopper::wgmma_fence();
-    issue_s<HDP>(sc, q_desc, k_desc(0));
+    issue_s<HD>(sc, q_desc, k_desc(0));
     hopper::wgmma_commit();
     your_turn();
     hopper::wgmma_wait<0>();
@@ -622,12 +470,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     float sc[kWgBKV / 2];
     my_turn();
     hopper::wgmma_fence();
-    issue_s<HDP>(sc, q_desc, k_desc(s));
+    issue_s<HD>(sc, q_desc, k_desc(s));
     hopper::wgmma_commit();
     hopper::fence_regs(o);
     hopper::fence_regs(p);
     hopper::wgmma_fence();
-    issue_pv<HDP>(o, p, v_desc(sp));
+    issue_pv<HD>(o, p, v_desc(sp));
     hopper::wgmma_commit();
     your_turn();
     hopper::wgmma_wait<1>();  // S_i is done; P_{i-1} V_{i-1} may still run
@@ -641,7 +489,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::fence_regs(p);
     if (lane == 0) hopper::mbar_arrive(&v_empty[sp]);  // and with V_{i-1}
 #pragma unroll
-    for (int j = 0; j < HDP / 2; ++j) o[j] *= (j & 2) ? a1 : a0;
+    for (int j = 0; j < HD / 2; ++j) o[j] *= (j & 2) ? a1 : a0;
     pack_p(sc, p, a0, a1, l0, l1);
   }
   {  // the last tile's O += P V
@@ -651,7 +499,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hopper::fence_regs(p);
     my_turn();
     hopper::wgmma_fence();
-    issue_pv<HDP>(o, p, v_desc(sp));
+    issue_pv<HD>(o, p, v_desc(sp));
     hopper::wgmma_commit();
     if (wg == 0) your_turn();  // group 1's last turn follows; nobody waits after it
     hopper::wgmma_wait<0>();
@@ -660,8 +508,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     if (lane == 0) hopper::mbar_arrive(&v_empty[sp]);
   }
 
-  // the quad's partial sums, then out = O / max(l, 1e-30), rounded once; the
-  // padding columns HD .. HDP - 1 are not stored
+  // the quad's partial sums, then out = O / max(l, 1e-30), rounded once
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -669,11 +516,11 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const float n0 = fmaxf(l0, 1e-30f), n1 = fmaxf(l1, 1e-30f);
   bf16* oh = out + static_cast<size_t>(bh_q) * S * HD;
 #pragma unroll
-  for (int j = 0; j < HDP / 2; j += 2) {
+  for (int j = 0; j < HD / 2; j += 2) {
     const int row = row0 + ((j & 2) ? 8 : 0);
     const int col = 8 * (j / 4) + kc;
     const float n = (j & 2) ? n1 : n0;
-    if (row < S && col < HD)
+    if (row < S)
       *reinterpret_cast<uint32_t*>(oh + static_cast<size_t>(row) * HD + col) =
           hopper::pack_bf16(o[j] / n, o[j + 1] / n);
   }
@@ -695,23 +542,10 @@ int launch_f32(const float* q, const float* k, const float* v, float* out, int B
 }
 
 template <int HD>
-int launch_wmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Hq, int Hkv,
-                int S, int causal, int window, float scale, cudaStream_t stream) {
-  constexpr int bytes = TcPlan<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_bf16_kernel<HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kTcBQ - 1) / kTcBQ, Hq, B);
-  flash_attention_bf16_kernel<HD><<<grid, kTcThreads, bytes, stream>>>(
-      q, k, v, out, Hq, Hkv, S, causal, window, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int HD>
 int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Hq,
                  int Hkv, int S, int causal, int window, float scale, cudaStream_t stream) {
   // 3-d maps (HD, S, B * H), innermost first: a box never crosses into the next head,
-  // and at HD = 112 the second 64-column box reads columns 112-127 as zeros
+  // and the columns of a 64-column box past HD read as zeros
   CUtensorMap q_map, k_map, v_map;
   const uint64_t q_dims[3] = {HD, static_cast<uint64_t>(S), static_cast<uint64_t>(B) * Hq};
   const uint64_t kv_dims[3] = {HD, static_cast<uint64_t>(S), static_cast<uint64_t>(B) * Hkv};
@@ -721,7 +555,7 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, 
       !hopper::make_map(&k_map, k, 3, kv_dims, strides, kv_box) ||
       !hopper::make_map(&v_map, v, 3, kv_dims, strides, kv_box))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int bytes = WgPlan<wg_cols(HD)>::bytes;
+  constexpr int bytes = WgPlan<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -732,16 +566,6 @@ int launch_wgmma(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// head_dim 64, 112 (padded to 128) and 128 take the wgmma design, 32 and 80 the WMMA one
-template <int HD>
-int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* out, int B, int Hq, int Hkv,
-                int S, int causal, int window, float scale, cudaStream_t stream) {
-  if constexpr (HD == 64 || HD == 112 || HD == 128)
-    return launch_wgmma<HD>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, stream);
-  else
-    return launch_wmma<HD>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, stream);
-}
-
 template <typename T, int HD>
 int launch_hd(const T* q, const T* k, const T* v, T* out, int B, int Hq, int Hkv, int S,
               int causal, int window, cudaStream_t stream) {
@@ -749,11 +573,11 @@ int launch_hd(const T* q, const T* k, const T* v, T* out, int B, int Hq, int Hkv
   if constexpr (sizeof(T) == sizeof(float)) {
     return launch_f32<HD>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, stream);
   } else {
-    // 8 values a load (WMMA) or a TMA box (wgmma): q, k and v start on 16 bytes
+    // TMA's global addresses: q, k and v start on 16 bytes
     const uintptr_t any = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v);
     if (any % 16) return static_cast<int>(cudaErrorMisalignedAddress);
-    return launch_bf16<HD>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, stream);
+    return launch_wgmma<HD>(q, k, v, out, B, Hq, Hkv, S, causal, window, scale, stream);
   }
 }
 

@@ -9,13 +9,17 @@ widths, the weights of the JAX init converted across, on the CPU:
   reference's ``use_pallas=False`` branch (the chunked jnp re-statement)
   and its ``use_pallas=True`` branch (the Pallas kernel in interpret mode);
   ``attention_decode`` at per-stream positions; and the flash op's plain
-  version against the JAX op in interpret mode, at 2e-5;
+  version against the JAX op in interpret mode, at 2e-5, with no window,
+  a window inside S and one at least S, at those widths and at
+  Zamba2-2.7B's shared block's 80 (its 32/32 heads narrowed to 4/4) and a
+  smoke config's 32 (4/2 heads);
 * Kimi-K2's routing, 384 experts, top-8, groups of 512 (capacity 14 a
   group): the dispatch equal exactly, combine and losses at 1e-6, and
   ``moe_ffn``'s output at 1e-5, at prefill and in the decode regime.
 
-On the CPU the flash op takes its plain version; the CUDA kernel's head_dim
-112 instance is held against that version on the card (chip_smoke.py).
+On the CPU the flash op takes its plain version; the CUDA kernel at each of
+these widths is held against that version on the card (chip_smoke.py,
+tests/test_torch_cuda.py).
 """
 import dataclasses
 
@@ -43,6 +47,10 @@ TOL = 1e-5
 FLASH_TOL = 2e-5  # docs/KERNELS.md's float32 flash pin
 # (query heads, kv heads, head_dim, d_model): Kimi-K2's 8:1 at 112, Llama-3.1-405B's 16:1 at 128
 WIDTHS = {"kimi": (8, 1, 112, 256), "llama405b": (16, 1, 128, 256)}
+# the flash op's widths besides: Zamba2-2.7B's shared block (32/32 heads, narrowed to 4/4) at
+# 80 and a smoke config's 4/2 at 32 (the attention layer's tests would take them too, at ~1 s a
+# case, which the file's time on one thread cannot spare)
+FLASH_WIDTHS = {**WIDTHS, "zamba2": (4, 4, 80, 320), "smoke": (4, 2, 32, 128)}
 
 
 def _attn_configs(which, window=0):
@@ -64,7 +72,8 @@ def _close(got, want, tol=TOL):
 @pytest.mark.parametrize("hd", [96, 120, 144])
 def test_the_kernel_takes_both_head_widths_and_refuses_others(hd):
     """The wrapper refuses a head_dim with no kernel instance before it touches a card."""
-    assert {112, 128} <= set(KERNEL_HEAD_DIMS) and hd not in KERNEL_HEAD_DIMS
+    assert {w[2] for w in FLASH_WIDTHS.values()} <= set(KERNEL_HEAD_DIMS)
+    assert hd not in KERNEL_HEAD_DIMS
     q = torch.zeros(1, 2, 8, hd, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim in"):
         _launch(q, q[:, :1].contiguous(), q[:, :1].contiguous(), True, 0)
@@ -106,10 +115,10 @@ def test_attention_decode_at_per_stream_positions(which, window):
         _close(out[name], jcache[name])
 
 
-@pytest.mark.parametrize("which", sorted(WIDTHS))
-@pytest.mark.parametrize("S,window", [(200, 0), (96, 40)])
+@pytest.mark.parametrize("which", sorted(FLASH_WIDTHS))
+@pytest.mark.parametrize("S,window", [(200, 0), (96, 40), (64, 4096)])
 def test_flash_op_matches_the_jax_op(which, S, window):
-    nq, nkv, hd, _ = WIDTHS[which]
+    nq, nkv, hd, _ = FLASH_WIDTHS[which]
     rng = np.random.default_rng(S)
     q, k, v = (jnp.asarray(rng.normal(size=(1, H, S, hd)), jnp.float32) for H in (nq, nkv, nkv))
     want = jax_flash(q, k, v, causal=True, window=window, block_q=64, block_kv=64,

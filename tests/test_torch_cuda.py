@@ -34,7 +34,8 @@ generation; so do the hybrid, vlm and audio ones (Zamba2's smoke config
 launching it once a shared-block invocation, its engine too), and the
 kernel is held at their prefill shapes (Zamba2's head_dim 80 with its
 window at least S and inside S, MusicGen's 32/32 at 64, LLaVA's 32/8 at
-4 x 4096 and a ragged 2,917).  A seed-lane (3 lanes) rec-MAPPO and
+4 x 4096 and a ragged 2,917), and at head_dim 80 and 32 on the wgmma
+design's tile edges and a smoke config's prefill.  A seed-lane (3 lanes) rec-MAPPO and
 IPPO update on the card must match the same update on the CPU at 1e-4,
 rec-MAPPO's with no more scan launches than one lane needs.  Every
 replay system's training iteration (act, write the table, update, a hard
@@ -544,6 +545,15 @@ def test_smoke_prefill_launches_the_scan_once_a_layer(cuda):
     (1, 64, 8, 37, 112, True, 0),
     (4, 64, 8, 2048, 112, True, 0),
     (4, 128, 8, 2048, 128, True, 0),
+    # head_dim 80 and 32 on the wgmma design (P V an n80 / n32 product) at its edges,
+    # Zamba2's 32/32 heads at an engine prompt, and a smoke config's prefill (4/2 heads
+    # at 32; Zamba2's smoke window of 32 inside S)
+    *[(1, 4, 2, S, hd, causal, 0) for hd in (80, 32) for S in (127, 129)
+      for causal in (True, False)],
+    *[(1, 2, 1, 300, hd, True, 70) for hd in (80, 32)],
+    *[(1, 32, 32, 16, hd, True, 4096) for hd in (80, 32)],
+    (2, 4, 2, 64, 32, True, 0),
+    (2, 4, 4, 64, 32, True, 32),
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, B, Hq, Hkv, S, hd, causal, window,
                                                       dtype):
